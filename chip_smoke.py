@@ -7,25 +7,39 @@ Drives the port (`tetris_mcts_tpu_torch`) only; it imports nothing of JAX or
 of the JAX package. Phases, each printing its elapsed seconds:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the walk kernels, one nvcc call for sm_90a (ops/build.py);
-3. small: a 3-move search at a small size with a stub evaluator and fixed
-   random planes, on the card (kernels) and on the CPU (plain versions):
+2. build: the kernels, one nvcc call per library, all started together
+   (ops/build.py: the walk kernels with --fmad=false, the forward without);
+3. small: 3-move searches at a small size with stub evaluators and fixed
+   random planes (and fixed playout draws), on the card (kernels) and on
+   the CPU (plain versions), for the lp, leaf and rollout evaluators:
    actions, traces, obs ids and visits must match exactly, values within
    rtol 1e-6 / atol 1e-5; and the VV net's float32 forward on the card
    against the CPU (rtol 1e-4; atol 1e-3 value, 1e-2 variance);
-4. main: frozen-net ValueSimLP self-play through `SelfPlayDriver` at the
-   CLI's default width (B=64, sims 100, pools 4096/4096, table 8192,
+4. main (lp): frozen-net ValueSimLP self-play through `SelfPlayDriver` at
+   the CLI's default width (B=64, sims 100, pools 4096/4096, table 8192,
    depth 96, VV net 32 filters / fc 256 with weights made from the seed)
-   for 20 moves; every kernel's launch count must equal moves x sims;
-5. profile: two moves under torch.profiler, device time by kernel;
-6. kernels: on the trees the main path grew, each kernel against its plain
+   for 20 moves; select, insert and LP backup must each launch moves x
+   sims times, the backup walk never;
+5. profile (lp): two moves under torch.profiler, device time by kernel;
+6. leaf: ValueSim self-play at the same width for 20 moves; select,
+   insert and the backup walk must each launch moves x sims times, the LP
+   backup never; then two profiled moves;
+7. rollout: Vanilla self-play (low 5, rollout_cap 512) at B=64 with 4 sims
+   for 2 moves; the backup walk must launch moves x sims times;
+8. forward: the fused packed-board forward's own entry
+   (`vv_forward_packed`) on the search's boards: the 448 child boards of
+   one lp simulation and the 64 leaf boards of one leaf simulation;
+9. kernels: on the trees those paths grew, each kernel against its plain
    version (integers exact; values/vars within rtol 1e-6 / atol 1e-5; the
-   select kernel under every selection rule it accepts), with the kernel's
-   device time a launch (torch.profiler), the time of a call through its
-   wrapper and of its plain version (CUDA events), and a bytes bound.
+   select kernel under every selection rule it accepts; the forward within
+   rtol 1e-4, atol 1e-3 / 1e-2 against its plain version and `VVNet`),
+   with the kernel's device time a launch (torch.profiler), the time of a
+   call through its wrapper and of its plain version (CUDA events), a
+   bound, and for the forward the device time of the `VVNet` forward.
 
-It then prints a JSON `kernels` line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}. Any failure exits non-zero
+Each path's launch counts are set to 0 just before it runs and read just
+after. It then prints a JSON `kernels` line, the card's name and power
+limit, and, last, {"ok": true, "device": {...}}. Any failure exits non-zero
 without the last line; a watchdog ends a hang with a traceback.
 """
 
@@ -39,6 +53,8 @@ import time
 
 WATCHDOG_S = 600
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
+FP32_FLOPS = 67e12         # H100 SXM published float32 rate outside the tensor cores
+MOVES = 20
 T0 = time.perf_counter()
 
 
@@ -96,11 +112,13 @@ def cuda_ms(fn, reps, setup=None):
 
 
 def device_ms(fn, reps, kernel, setup=None):
-    """Device time of one launch of `kernel` (its name in csrc/tree_walk.cu):
-    fn() is called reps times under torch.profiler, and the device-side time
-    of the launches the profiler recorded is averaged. The host's time
-    between launches is not counted. The profiler can miss the first launch
-    of a session; fewer than reps - 1 recorded launches raise."""
+    """Device time of one launch of `kernel` (its qualified name in csrc/,
+    e.g. "tmt::select_kernel"): fn() is called reps times under
+    torch.profiler, and the device-side time of the launches the profiler
+    recorded is averaged. The host's time between launches is not counted.
+    The profiler can miss launches at the start of a session (1 to 3 of 20
+    seen on the H100); the mean is over the launches it recorded, and fewer
+    than half of reps, or more than reps, raise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -112,9 +130,9 @@ def device_ms(fn, reps, kernel, setup=None):
             fn(*a)
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and f"tmt::{kernel}(" in e.key]
+            if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.key]
     n = sum(e.count for e in rows)
-    if not reps - 1 <= n <= reps:
+    if not reps // 2 <= n <= reps:
         raise AssertionError(f"{kernel}: profiler saw {n} launches, want {reps}")
     return sum(e.self_device_time_total for e in rows) / 1e3 / n
 
@@ -129,38 +147,45 @@ def stub_evaluator(x):
             torch.full((n,), 2.5, device=x.device))
 
 
-def phase_small(torch, mcts, T, tree_walk):
-    """The move program on the card against the same program on the CPU."""
+def phase_small(torch, mcts, T, evaluator):
+    """The move program on the card against the same program on the CPU,
+    with the stub net (lp, leaf) or fixed playout draws (rollout)."""
     import numpy as np
 
-    tcfg = T.TreeConfig(max_nodes=256, max_obs=256, table_size=512, max_depth=16)
-    scfg = mcts.SearchConfig(tree=tcfg, sims=8)
+    tcfg = T.TreeConfig(max_nodes=256, max_obs=256, table_size=512, max_depth=16,
+                        low=5 if evaluator == "rollout" else 1)
+    scfg = mcts.SearchConfig(tree=tcfg, sims=8, evaluator=evaluator, rollout_cap=64)
     rng = np.random.RandomState(0)
     n_calls = 3 * scfg.sims
     planes = [torch.as_tensor(-np.log(rng.exponential(size=(4, 16, 7))), dtype=torch.float32)
               for _ in range(n_calls)]
+    draws = torch.as_tensor(rng.randint(0, 7, (n_calls * scfg.rollout_cap, 4)))
     zeros = torch.zeros(4, 16, 7)
     results = {}
     for dev in ("cuda", "cpu"):
         feed = iter(planes)
         src = lambda B, D, dev=dev: (next(feed).to(dev), zeros.to(dev))
-        move = mcts.make_move_fn(mcts.nn_child_evaluator(stub_evaluator), scfg, src)
+        acts = iter(draws)
+        draw = lambda B, step, dev=dev: next(acts).to(dev)
+        ev = {"lp": lambda: mcts.nn_child_evaluator(stub_evaluator),
+              "leaf": lambda: mcts.nn_leaf_evaluator(stub_evaluator),
+              "rollout": lambda: mcts.rollout_evaluator(scfg, draw)}[evaluator]()
+        move = mcts.make_move_fn(ev, scfg, src)
         trees, envs = mcts.init_batch(7, 4, scfg, device=dev)
-        acts = []
+        out = []
         for _ in range(3):
             envs, st = move(trees, envs)
-            acts.append(st.action)
-        results[dev] = (torch.stack(acts), trees, envs)
+            out.append(st.action)
+        results[dev] = (torch.stack(out), trees, envs)
     ga, gt, ge = results["cuda"]
     ca, ct, ce = results["cpu"]
-    close("small actions", ga, ca, True)
-    close("small envs", ge, ce, True)
+    close(f"small[{evaluator}] actions", ga, ca, True)
+    close(f"small[{evaluator}] envs", ge, ce, True)
     for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits",
               "tbl_h1", "tbl_h2", "tbl_obs", "root"):
-        close(f"small {f}", getattr(gt, f), getattr(ct, f), True)
-    err = max(close("small values", gt.values, ct.values, False),
-              close("small vars", gt.vars_, ct.vars_, False))
-    return err
+        close(f"small[{evaluator}] {f}", getattr(gt, f), getattr(ct, f), True)
+    return max(close(f"small[{evaluator}] values", gt.values, ct.values, False),
+               close(f"small[{evaluator}] vars", gt.vars_, ct.vars_, False))
 
 
 def phase_net(torch):
@@ -200,6 +225,110 @@ def bytes_lp(lengths, B):
     return B * (4 + 56 + 1 + 8 + 7 * 21) + levels * (4 + 8 + 24)
 
 
+def bytes_backup(lengths, B):
+    # per lane: v0/var0/length 12; per level: trace 4, score/obs 8, stats
+    # read 12 + write 12
+    levels = int(lengths.sum().item())
+    return B * 12 + levels * (4 + 8 + 24)
+
+
+# multiply-adds of one board through the VV net: conv1 18*8*32*9, conv2
+# 16*6*32*288, conv3 14*4*32*288, fc1 1792*256, fc2 256*2
+VV_MACS = 18 * 8 * 32 * 9 + 16 * 6 * 32 * 288 + 14 * 4 * 32 * 288 + 1792 * 256 + 256 * 2
+
+
+def bound_vv(n, net):
+    """(bound ms, what bounds it) of the fused forward on n boards: the
+    larger of its float32 operations over the card's float32 rate and its
+    bytes (boards in 80 B, outputs 8 B, every weight once) over HBM's."""
+    w_bytes = 4 * sum(p.numel() for p in net.parameters())
+    t_ops = 2 * VV_MACS * n / FP32_FLOPS
+    t_bytes = (n * (80 + 8) + w_bytes + 16) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def device_ms_all(fn, reps):
+    """Device time of all kernels fn() launches, a call (torch.profiler,
+    device-side events only), over reps calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def reset_launches():
+    from tetris_mcts_tpu_torch.ops import tree_walk, vv_forward
+
+    tree_walk.reset_launches()
+    vv_forward.reset_launches()
+
+
+def read_launches():
+    from tetris_mcts_tpu_torch.ops import tree_walk, vv_forward
+
+    return {**tree_walk.LAUNCHES, **vv_forward.LAUNCHES}
+
+
+def check_launches(path, got, want):
+    """Every kernel's launches on `path` equal want.get(name, 0)."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{path}: {name} launched {n} times, want "
+                                 f"{want.get(name, 0)}")
+
+
+def drive(torch, cfg, moves, log):
+    """SelfPlayDriver for cfg on the card: one warm-up move, then `moves`
+    moves with the launch counts set to 0 just before and read just after.
+    Returns (driver, wall seconds of the moves, launches)."""
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
+
+    driver = SelfPlayDriver(cfg, device="cuda", log=log)
+    driver.step()  # warm-up move: cuDNN autotune, allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    t_run = time.perf_counter()
+    driver.run(moves)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = read_launches()
+    st = driver.last_stats
+    for name, x in st._asdict().items():
+        if x.is_floating_point() and not bool(torch.isfinite(x[x > -torch.inf]).all()):
+            raise AssertionError(f"{cfg.evaluator} path: non-finite {name}")
+    if not bool((st.child_stats[:, 0].sum(1) > 0).all()):
+        raise AssertionError(f"{cfg.evaluator} path: a root without visits")
+    return driver, wall, launches
+
+
+def report_episode(driver, episodes):
+    st = driver.last_stats
+    if episodes:
+        say(f"episode line: {episodes[-1]}")
+    else:  # games outlast the run: game 0 so far, in the Episode format
+        say(f"episode line (game 0, live): Episode:     -  Score:{int(st.score[0]):10d}  "
+            f"Lines Cleared:{int(st.lines[0]):5d}")
+
+
+def report_profile(torch, driver, wall, moves, label):
+    t = time.perf_counter()
+    busy_ms, prof_rows = profile_moves(torch, driver, 2)
+    per_move_ms = wall / moves * 1e3
+    say(f"phase profile ({label}): device kernel time {busy_ms / 2:.2f} ms per move "
+        f"against {per_move_ms:.2f} ms wall per move unprofiled (device busy share "
+        f"{busy_ms / 2 / per_move_ms:.3f}); top device kernels:")
+    for name, ms, n in prof_rows[:12]:
+        say(f"  {ms / 2:9.3f} ms/move  {n // 2:6d} launches/move  {name[:90]}")
+    say(f"phase profile ({label}) took {time.perf_counter() - t:.1f}s")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -209,10 +338,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from tetris_mcts_tpu_torch.ops import build, tree_walk
+        from tetris_mcts_tpu_torch.ops import build, tree_walk, vv_forward
         from tetris_mcts_tpu_torch.search import mcts
         from tetris_mcts_tpu_torch.search import tree as T
-        from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, SelfPlayDriver
+        from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig
     except ImportError as e:
         print(f"chip_smoke: the port package is not here ({e})", file=sys.stderr)
         return 2
@@ -226,71 +355,104 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t = time.perf_counter()
-    build.lib()
-    regs = [ln.strip() for ln in build.ptxas_log.splitlines() if "registers" in ln]
-    say(f"phase build: nvcc {build.build_seconds:.1f}s ({time.perf_counter() - t:.1f}s "
-        f"with load); ptxas: {' | '.join(regs)}")
+    build.build_all()
+    for name in build.LIBRARIES:
+        build.lib(name)
+        regs = [ln.strip() for ln in build.ptxas_log.get(name, "").splitlines()
+                if "registers" in ln or "smem" in ln]
+        say(f"phase build: {name}: nvcc {build.build_seconds[name]:.1f}s; ptxas: "
+            f"{' | '.join(regs)}")
+    say(f"phase build took {time.perf_counter() - t:.1f}s (nvcc calls in parallel, "
+        f"with load)")
 
-    # ---- 3. small: card vs CPU on one small search --------------------------
+    # ---- 3. small: card vs CPU on small searches ----------------------------
     t = time.perf_counter()
-    small_err = phase_small(torch, mcts, T, tree_walk)
+    small_err = {ev: phase_small(torch, mcts, T, ev) for ev in mcts.EVALUATORS}
     net_err = phase_net(torch)
-    say(f"phase small: 3 moves x 8 sims at B=4 equal on cuda and cpu "
-        f"(float max abs err {small_err:.3e}); VV net float32 on cuda vs cpu max abs "
-        f"err value {net_err[0]:.3e}, variance {net_err[1]:.3e}; in "
-        f"{time.perf_counter() - t:.1f}s")
+    say(f"phase small: 3 moves x 8 sims at B=4 equal on cuda and cpu for "
+        + ", ".join(f"{ev} (float max abs err {e:.3e})" for ev, e in small_err.items())
+        + f"; VV net float32 on cuda vs cpu max abs err value {net_err[0]:.3e}, "
+        f"variance {net_err[1]:.3e}; in {time.perf_counter() - t:.1f}s")
 
-    # ---- 4. main path ------------------------------------------------------
+    # ---- 4. main path (lp) --------------------------------------------------
     t = time.perf_counter()
     cfg = SelfPlayConfig()  # the CLI's default width
     episodes = []
-    driver = SelfPlayDriver(cfg, device="cuda", log=episodes.append)
-    driver.step()  # warm-up move: cuDNN autotune, allocator
-    torch.cuda.synchronize()
-    moves = 20
-    tree_walk.reset_launches()
-    t_run = time.perf_counter()
-    driver.run(moves)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_run
-    launches = dict(tree_walk.LAUNCHES)
-    want = moves * cfg.sims
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches on the main path, want {want}")
+    driver, wall, launches = drive(torch, cfg, MOVES, episodes.append)
+    want = MOVES * cfg.sims
+    check_launches("lp path", launches,
+                   {"select_walk": want, "insert7_walk": want, "lp_backup_walk": want})
     st = driver.last_stats
-    for name, x in st._asdict().items():
-        if x.is_floating_point() and not bool(torch.isfinite(x[x > -torch.inf]).all()):
-            raise AssertionError(f"main path: non-finite {name}")
-    if not bool((st.child_stats[:, 0].sum(1) > 0).all()):
-        raise AssertionError("main path: a root without visits")
-    trees = driver.trees
-    say(f"phase main: {moves} moves x {cfg.sims} sims at B={cfg.batch} in {wall:.2f}s: "
-        f"{moves / wall:.2f} moves/s, {moves * cfg.batch * cfg.sims / wall:.1f} sims/s "
-        f"({smi}); launches {launches}; {driver.episodes} episodes; "
-        f"mean root nodes {st.n_nodes.float().mean().item():.0f}")
-    if episodes:
-        say(f"episode line: {episodes[-1]}")
-    else:  # games outlast the run: game 0 so far, in the Episode format
-        say(f"episode line (game 0, live): Episode:     -  Score:{int(st.score[0]):10d}  "
-            f"Lines Cleared:{int(st.lines[0]):5d}")
-    say(f"phase main took {time.perf_counter() - t:.1f}s")
+    say(f"phase main (lp): {MOVES} moves x {cfg.sims} sims at B={cfg.batch} in "
+        f"{wall:.2f}s: {MOVES / wall:.2f} moves/s, "
+        f"{MOVES * cfg.batch * cfg.sims / wall:.1f} sims/s ({smi}); launches "
+        f"{launches}; {driver.episodes} episodes; mean root nodes "
+        f"{st.n_nodes.float().mean().item():.0f}")
+    report_episode(driver, episodes)
+    say(f"phase main (lp) took {time.perf_counter() - t:.1f}s")
 
     # ---- 5. where the time goes: two profiled moves -------------------------
-    t = time.perf_counter()
-    busy_ms, prof_rows = profile_moves(torch, driver, 2)
-    per_move_ms = wall / moves * 1e3
-    say(f"phase profile: device kernel time {busy_ms / 2:.2f} ms per move against "
-        f"{per_move_ms:.2f} ms wall per move unprofiled (device busy share "
-        f"{busy_ms / 2 / per_move_ms:.3f}); top device kernels:")
-    for name, ms, n in prof_rows[:12]:
-        say(f"  {ms / 2:9.3f} ms/move  {n // 2:6d} launches/move  {name[:90]}")
-    say(f"phase profile took {time.perf_counter() - t:.1f}s")
+    report_profile(torch, driver, wall, MOVES, "lp")
 
-    # ---- 6. kernels vs plain on the grown trees -----------------------------
+    # ---- 6. leaf path (ValueSim) --------------------------------------------
+    t = time.perf_counter()
+    lcfg = cfg._replace(evaluator="leaf")
+    episodes = []
+    leaf_driver, leaf_wall, leaf_launches = drive(torch, lcfg, MOVES, episodes.append)
+    check_launches("leaf path", leaf_launches,
+                   {"select_walk": want, "insert7_walk": want, "backup_walk": want})
+    st = leaf_driver.last_stats
+    say(f"phase leaf: {MOVES} moves x {lcfg.sims} sims at B={lcfg.batch} in "
+        f"{leaf_wall:.2f}s: {MOVES / leaf_wall:.2f} moves/s, "
+        f"{MOVES * lcfg.batch * lcfg.sims / leaf_wall:.1f} sims/s ({smi}); launches "
+        f"{leaf_launches}; {leaf_driver.episodes} episodes; mean root nodes "
+        f"{st.n_nodes.float().mean().item():.0f}")
+    report_episode(leaf_driver, episodes)
+    say(f"phase leaf took {time.perf_counter() - t:.1f}s")
+    report_profile(torch, leaf_driver, leaf_wall, MOVES, "leaf")
+
+    # ---- 7. rollout path (Vanilla) ------------------------------------------
+    t = time.perf_counter()
+    rcfg = cfg._replace(evaluator="rollout", sims=4, low=5)
+    r_moves = 2
+    episodes = []
+    r_driver, r_wall, r_launches = drive(torch, rcfg, r_moves, episodes.append)
+    r_want = r_moves * rcfg.sims
+    check_launches("rollout path", r_launches,
+                   {"select_walk": r_want, "insert7_walk": r_want, "backup_walk": r_want})
+    say(f"phase rollout: {r_moves} moves x {rcfg.sims} sims at B={rcfg.batch}, "
+        f"rollout_cap {r_driver.search_cfg.rollout_cap}, in {r_wall:.2f}s: "
+        f"{r_wall / r_moves * 1e3:.1f} ms wall per move ({smi}); launches {r_launches}; "
+        f"last playout ran {r_driver.evaluator.steps} steps")
+    say(f"phase rollout took {time.perf_counter() - t:.1f}s")
+
+    # ---- 8. forward path: the fused forward's entry on the search's boards --
     t = time.perf_counter()
     tcfg = driver.search_cfg.tree
     B, D = cfg.batch, tcfg.max_depth
+    trees, leaf_trees = driver.trees, leaf_driver.trees
+    gum, rnd = mcts.TorchPlanes(123, "cuda", tcfg.policy)(B, D)
+    out_lp = tree_walk.select_walk(trees, gum, rnd, tcfg)
+    out_leaf = tree_walk.select_walk(leaf_trees, gum, rnd, tcfg)
+    from tetris_mcts_tpu_torch.ops.env_packed import packed_obs
+
+    boards = {"lp children": out_lp[4].reshape(B * 7, 20).contiguous(),
+              "leaf boards": packed_obs(out_leaf[3]).contiguous()}
+    model = driver.model
+    reset_launches()
+    fwd = {k: vv_forward.vv_forward_packed(model.net, model.ubound, model.lbound, x)
+           for k, x in boards.items()}
+    torch.cuda.synchronize()
+    fwd_launches = read_launches()
+    check_launches("forward path", fwd_launches, {"vv_forward": len(boards)})
+    for k, (v, var) in fwd.items():
+        if not (bool(torch.isfinite(v).all()) and bool(torch.isfinite(var).all())):
+            raise AssertionError(f"forward path: non-finite output on {k}")
+    say(f"phase forward: vv_forward_packed on {', '.join(f'{x.shape[0]} {k}' for k, x in boards.items())}; "
+        f"launches {fwd_launches}; in {time.perf_counter() - t:.1f}s")
+
+    # ---- 9. kernels vs plain on the grown trees -----------------------------
+    t = time.perf_counter()
     rows = []
 
     # every selection rule the kernel accepts (low=1 lets the rule's bound
@@ -308,15 +470,16 @@ def main() -> int:
     say(f"kernel select_walk: all 7 outputs equal to plain for "
         f"{', '.join(f'{p}/low={lo}' for p, lo in cases)} and clt (the main path's)")
     ms_k = device_ms(lambda: tree_walk.select_walk(trees, gum, rnd, tcfg), 20,
-                     "select_kernel")
+                     "tmt::select_kernel")
     ev_k = cuda_ms(lambda: tree_walk.select_walk(trees, gum, rnd, tcfg), 20)
     ms_p = cuda_ms(lambda: tree_walk.select_walk_plain(trees, gum, rnd, tcfg), 2)
     traces, lengths, leafs, _, packed7, sc7, end7i = out_k
-    rows.append(("select_walk", "tetris_mcts_tpu/ops/tree_walk.py:424", 0.0, ms_k,
-                 ev_k, ms_p, bytes_select(lengths, D, B)))
+    rows.append(("select_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:424",
+                 launches, 0.0, ms_k, ev_k, ms_p,
+                 bytes_select(lengths, D, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
     say(f"kernel select_walk (clt): max diff 0; {ms_k:.4f} ms device a launch "
         f"({ev_k:.4f} ms a call with the wrapper), {ms_p:.1f} ms plain; "
-        f"{launches['select_walk']} launches on the main path; mean length "
+        f"{launches['select_walk']} launches on the lp path; mean length "
         f"{lengths.float().mean().item():.1f}")
 
     b = torch.arange(B, device="cuda")
@@ -332,19 +495,20 @@ def main() -> int:
     n_new = int((t_k.n_obs - trees.n_obs).sum().item())
     ins_k = lambda tt: tree_walk.insert_obs7(tt, packed7, end7, can, tcfg)
     fresh = lambda: (trees.clone(),)
-    ms_k = device_ms(ins_k, 20, "insert7_kernel", setup=fresh)
+    ms_k = device_ms(ins_k, 20, "tmt::insert7_kernel", setup=fresh)
     ev_k = cuda_ms(ins_k, 20, setup=fresh)
     ms_p = cuda_ms(lambda tt: T.insert_obs7_batched(tt, packed7, end7, can, tcfg), 2,
                    setup=fresh)
-    rows.append(("insert7_walk", "tetris_mcts_tpu/ops/tree_walk.py:804", 0.0, ms_k,
-                 ev_k, ms_p, bytes_insert(n_new, B)))
+    rows.append(("insert7_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:804",
+                 launches, 0.0, ms_k, ev_k, ms_p,
+                 bytes_insert(n_new, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
     say(f"kernel insert7_walk: max diff 0 (obs7 and tables equal to plain; "
         f"{int(can.sum())} lanes expand, {n_new} fresh ids); {ms_k:.4f} ms device a "
         f"launch ({ev_k:.4f} ms a call with the wrapper), {ms_p:.1f} ms plain; "
-        f"{launches['insert7_walk']} launches on the main path")
+        f"{launches['insert7_walk']} launches on the lp path")
 
     T.expand_commit(t_k, sc7, end7, o_k, leafs, can)
-    v, var = driver.model.apply_fn()(packed_imgs(packed7))
+    v, var = model.apply_fn()(packed_imgs(packed7))
     v, var = v.reshape(B, 7).contiguous(), var.reshape(B, 7).contiguous()
     l_k, l_p = t_k.clone(), t_k.clone()
     tree_walk.lp_backup(l_k, traces, lengths, v, var, can, tcfg)
@@ -354,26 +518,84 @@ def main() -> int:
               close("lp vars", l_k.vars_, l_p.vars_, False))
     lp_k = lambda tt: tree_walk.lp_backup(tt, traces, lengths, v, var, can, tcfg)
     fresh = lambda: (t_k.clone(),)
-    ms_k = device_ms(lp_k, 20, "lp_backup_kernel", setup=fresh)
+    ms_k = device_ms(lp_k, 20, "tmt::lp_backup_kernel", setup=fresh)
     ev_k = cuda_ms(lp_k, 20, setup=fresh)
     ms_p = cuda_ms(lambda tt: tree_walk.lp_backup_plain(tt, traces, lengths, v, var, can,
                                                         tcfg), 2, setup=fresh)
-    rows.append(("lp_backup_walk", "tetris_mcts_tpu/ops/tree_walk.py:1091", err, ms_k,
-                 ev_k, ms_p, bytes_lp(lengths, B)))
+    rows.append(("lp_backup_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:1091",
+                 launches, err, ms_k, ev_k, ms_p,
+                 bytes_lp(lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
     say(f"kernel lp_backup_walk: visits equal to plain, values/vars max abs err "
         f"{err:.3e}; {ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call with the "
         f"wrapper), {ms_p:.1f} ms plain; "
-        f"{launches['lp_backup_walk']} launches on the main path")
+        f"{launches['lp_backup_walk']} launches on the lp path")
+
+    # the backup walk on the leaf path's grown trees, from the leaf
+    # evaluator's (v0, var0): leaf score + net value, net variance
+    l_traces, l_lengths, l_leafs, l_env = out_leaf[:4]
+    lv, lvar = leaf_driver.evaluator(None, l_env)
+    bl = torch.arange(B, device="cuda")
+    v0 = leaf_trees.nstat[bl, 0, l_leafs.long()] + lv
+    b_k, b_p = leaf_trees.clone(), leaf_trees.clone()
+    tree_walk.backup(b_k, l_traces, l_lengths, v0, lvar, tcfg)
+    T.backup_batched(b_p, l_traces, l_lengths, v0, lvar, tcfg)
+    close("backup visits", b_k.visits, b_p.visits, True)
+    err = max(close("backup values", b_k.values, b_p.values, False),
+              close("backup vars", b_k.vars_, b_p.vars_, False))
+    bk = lambda tt: tree_walk.backup(tt, l_traces, l_lengths, v0, lvar, tcfg)
+    fresh = lambda: (leaf_trees.clone(),)
+    ms_k = device_ms(bk, 20, "tmt::backup_kernel", setup=fresh)
+    ev_k = cuda_ms(bk, 20, setup=fresh)
+    ms_p = cuda_ms(lambda tt: T.backup_batched(tt, l_traces, l_lengths, v0, lvar, tcfg),
+                   2, setup=fresh)
+    rows.append(("backup_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:161",
+                 leaf_launches, err, ms_k, ev_k, ms_p,
+                 bytes_backup(l_lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
+    say(f"kernel backup_walk: visits equal to plain, values/vars max abs err {err:.3e}; "
+        f"{ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call with the wrapper), "
+        f"{ms_p:.1f} ms plain; {leaf_launches['backup_walk']} launches on the leaf "
+        f"path; mean length {l_lengths.float().mean().item():.1f}")
+
+    # the fused forward against its plain version and VVNet, on both board sets
+    from tetris_mcts_tpu_torch.env.engine import unpack_obs
+
+    net, ub, lb = model.net, model.ubound, model.lbound
+    fwd_rows = {}
+    for k, x in boards.items():
+        v_k, var_k = fwd[k]
+        v_p, var_p = vv_forward.vv_forward_packed_plain(net, ub, lb, x)
+        imgs = unpack_obs(x)[:, None].float()
+        v_n, var_n = model.apply_fn()(imgs)
+        err = max(close(f"vv_forward[{k}] value vs plain", v_k, v_p, False, 1e-4, 1e-3),
+                  close(f"vv_forward[{k}] variance vs plain", var_k, var_p, False, 1e-4,
+                        1e-2),
+                  close(f"vv_forward[{k}] value vs VVNet", v_k, v_n, False, 1e-4, 1e-3),
+                  close(f"vv_forward[{k}] variance vs VVNet", var_k, var_n, False, 1e-4,
+                        1e-2))
+        fk = lambda: vv_forward.vv_forward_packed(net, ub, lb, x)
+        ms_k = device_ms(fk, 20, "tmt_vv::vv_forward_kernel")
+        ev_k = cuda_ms(fk, 20)
+        ms_p = cuda_ms(lambda: vv_forward.vv_forward_packed_plain(net, ub, lb, x), 5)
+        ms_lib = device_ms_all(lambda: model.apply_fn()(imgs), 20)
+        bound, bound_by = bound_vv(x.shape[0], net)
+        fwd_rows[k] = (err, ms_k, ev_k, ms_p, bound, bound_by, ms_lib)
+        say(f"kernel vv_forward on {x.shape[0]} {k}: max abs err {err:.3e} against "
+            f"plain and VVNet; {ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call "
+            f"with the wrapper), {ms_p:.3f} ms plain, VVNet forward (cuDNN/cuBLAS) "
+            f"{ms_lib:.4f} ms device; bound {bound:.4f} ms ({bound_by})")
+    err = max(r[0] for r in fwd_rows.values())
+    rows.append(("vv_forward", "vv_forward.cu", "tetris_mcts_tpu/ops/vv_forward.py:117",
+                 fwd_launches, err, *fwd_rows["lp children"][1:]))
     say(f"phase kernels took {time.perf_counter() - t:.1f}s")
 
     kernels = [{
         "name": name, "route": "cuda",
-        "source": "tetris_mcts_tpu_torch/csrc/tree_walk.cu",
-        "replaces": replaces, "launches": launches[name], "max_abs_err": err,
+        "source": f"tetris_mcts_tpu_torch/csrc/{src}",
+        "replaces": replaces, "launches": counts[name], "max_abs_err": err,
         "ms": ms_k, "call_ms": ev_k, "plain_ms": ms_p,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None,
-    } for name, replaces, err, ms_k, ev_k, ms_p, nbytes in rows]
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": ms_lib,
+    } for (name, src, replaces, counts, err, ms_k, ev_k, ms_p, bound, bound_by,
+           ms_lib) in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -1,6 +1,7 @@
 """The port's `play` CLI and frozen-net driver on the CPU: a tiny run plays
-whole episodes and logs them in the reference's "Episode:" format, and a
-reference flag the port does not support is refused by name."""
+whole episodes and logs them in the reference's "Episode:" format, for
+every agent type the port runs; a reference flag or agent type the port
+does not support is refused by name."""
 
 import re
 
@@ -31,3 +32,35 @@ def test_play_refuses_unported_flags(flag, capsys):
         play.main(TINY + [flag])
     assert exc.value.code == 2
     assert flag.split("=")[0] in capsys.readouterr().err
+
+
+# agent type -> (evaluator, sims of a --mcts_sims 2 run, low, policy), the
+# reference CLI's rules
+AGENTS = {
+    "ValueSim": ("leaf", 2, 1, "clt"),
+    "ValueSimOnline": ("leaf", 2, 1, "clt"),
+    "ValueSimBayes": ("leaf", 2, 10, "bayes"),
+    "Vanilla": ("rollout", 2, 5, "clt"),
+    "VanillaC": ("rollout", 2, 5, "clt"),
+    "Random": ("rollout", 1, 1, "clt"),
+}
+
+
+@pytest.mark.parametrize("agent", AGENTS)
+def test_play_agent_runs_a_game_on_cpu(agent, capsys):
+    driver = play.main(TINY + ["--agent_type", agent, "--ngames", "1",
+                               "--max_moves", "400"])
+    err = capsys.readouterr().err
+    evaluator, sims, low, policy = AGENTS[agent]
+    assert (driver.cfg.evaluator, driver.cfg.sims, driver.cfg.low,
+            driver.cfg.policy) == (evaluator, sims, low, policy)
+    assert driver.episodes >= 1
+    assert re.search(r"Episode:\s+1\s+Score:\s+\d+\s+Lines Cleared:\s+\d+", err)
+
+
+@pytest.mark.parametrize("agent", ["ApproxPolicyIter", "HybridSim", "DQN"])
+def test_play_refuses_unported_agent_types(agent, capsys):
+    with pytest.raises(SystemExit) as exc:
+        play.main(TINY + ["--agent_type", agent])
+    assert exc.value.code == 2
+    assert f"--agent_type {agent} is not ported" in capsys.readouterr().err

@@ -6,7 +6,8 @@ the fixture, never at import). On a machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Integers must match exactly; values and vars within rtol 1e-6 / atol 1e-5
-(tests/test_search.py's backup tolerance).
+(tests/test_search.py's backup tolerance); the fused VV forward within
+rtol 1e-4, atol 1e-3 (value) / 1e-2 (variance) (tests/test_ops.py's).
 """
 
 import numpy as np
@@ -79,6 +80,43 @@ def test_lp_backup_kernel_matches_plain(grown):
     torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
     torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
 
+
+def test_backup_kernel_matches_plain(grown):
+    traces, lengths, *_ = W.select_walk(grown, *M.TorchPlanes(4, "cuda")(B, CFG.max_depth),
+                                        CFG)
+    v0 = torch.linspace(3.0, 70.0, B, device="cuda")
+    var0 = torch.linspace(0.25, 2.0, B, device="cuda")
+    tk, tp = grown.clone(), grown.clone()
+    W.reset_launches()
+    W.backup(tk, traces, lengths, v0, var0, CFG)
+    assert W.LAUNCHES["backup_walk"] == 1
+    T.backup_batched(tp, traces, lengths, v0, var0, CFG)
+    assert torch.equal(tk.visits, tp.visits)
+    assert not torch.equal(tk.visits, grown.visits)
+    torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [448, 64, 5])
+def test_vv_forward_kernel_matches_plain_and_vvnet(grown, n):
+    """On child boards of the grown trees (their obs rows), at the main
+    path's 448 boards, the leaf path's 64, and a ragged 5."""
+    from tetris_mcts_tpu_torch.env.engine import unpack_obs
+    from tetris_mcts_tpu_torch.ops import vv_forward as F
+    from tetris_mcts_tpu_torch.train.trainer import VVModel
+
+    bits = grown.obs_bits.permute(0, 2, 1).reshape(-1, 20)
+    packed = bits[bits.any(1)][:n].contiguous()
+    assert packed.shape[0] == n
+    model = VVModel(seed=5, device="cuda")
+    F.reset_launches()
+    v, var = F.vv_forward_packed(model.net, model.ubound, model.lbound, packed)
+    assert F.LAUNCHES["vv_forward"] == 1
+    v_p, var_p = F.vv_forward_packed_plain(model.net, model.ubound, model.lbound, packed)
+    v_n, var_n = model.apply_fn()(unpack_obs(packed)[:, None].float())
+    for v_ref, var_ref in ((v_p, var_p), (v_n, var_n)):
+        torch.testing.assert_close(v, v_ref, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(var, var_ref, rtol=1e-4, atol=1e-2)
 
 
 def test_vvnet_on_card_matches_cpu():

@@ -29,6 +29,15 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_kernel_modules_are_checked():
+    """Every module that wraps a kernel, and the move program that drives
+    them, is among the sources checked above."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py",
+                "search/mcts.py", "runtime/selfplay.py", "cli/play.py"):
+        assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"

@@ -39,54 +39,11 @@ from tetris_mcts_tpu_torch.env import engine as E
 from tetris_mcts_tpu_torch.ops import tree_walk as W
 from tetris_mcts_tpu_torch.search import mcts as M
 from tetris_mcts_tpu_torch.search import tree as T
-from tetris_mcts_tpu_torch.train.trainer import VVModel, params_from_jax
+from torch_parity import (B, JCFG, STAT_TOL, TCFG, JaxKeyPlanes, as_i32,
+                          assert_tree_equal, jax_move_program, jax_planes,
+                          port_vvmodel, run_slice, stub_apply, torch_stub, tree_from_jax)
 
 torch.set_num_threads(1)
-
-# TestShardedKernels' tree config and growth (B=8, 9 sims, seeds 31 / 6)
-JCFG = JT.TreeConfig(max_nodes=256, max_obs=256, table_size=512, max_depth=32)
-TCFG = T.TreeConfig(max_nodes=256, max_obs=256, table_size=512, max_depth=32)
-B = 8
-STAT_TOL = dict(rtol=1e-6, atol=1e-5)
-
-
-def as_i32(x):
-    return np.asarray(x).astype(np.uint32).view(np.int32)
-
-
-def tree_from_jax(jt) -> T.Tree:
-    """A batched JAX Tree as the port's Tree (same arrays, u32 as int32)."""
-    t = lambda x, dt=None: torch.as_tensor(np.array(x, dtype=dt))
-    return T.Tree(
-        cbase=t(jt.cbase, np.int32), nstat=t(jt.nstat, np.float32),
-        end=t(jt.end, bool), n_nodes=t(jt.n_nodes, np.int32),
-        root_env=t(as_i32(JE.pack_state(jt.root_state))),
-        visits=t(jt.visits, np.float32), values=t(jt.values, np.float32),
-        vars_=t(jt.vars_, np.float32), obs_end=t(jt.obs_end, bool),
-        obs_bits=t(as_i32(jt.obs_bits)), n_obs=t(jt.n_obs, np.int32),
-        tbl_h1=t(as_i32(jt.tbl_h1)), tbl_h2=t(as_i32(jt.tbl_h2)),
-        tbl_obs=t(jt.tbl_obs, np.int32), root=t(jt.root, np.int32),
-    )
-
-
-def assert_tree_equal(got: T.Tree, jt, stats_tol=STAT_TOL, msg=""):
-    want = tree_from_jax(jt)
-    for f in ("cbase", "nstat", "end", "n_nodes", "root_env", "visits",
-              "obs_end", "obs_bits", "n_obs", "tbl_h1", "tbl_h2", "tbl_obs", "root"):
-        np.testing.assert_array_equal(getattr(got, f).numpy(),
-                                      getattr(want, f).numpy(), err_msg=f"{f} {msg}")
-    for f in ("values", "vars_"):
-        np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(),
-                                   err_msg=f"{f} {msg}", **stats_tol)
-
-
-def stub_apply(p, u, x):
-    return jnp.linspace(1.0, 8.0, x.shape[0]), jnp.full(x.shape[0], 2.5)
-
-
-def torch_stub(x):
-    n = x.shape[0]
-    return torch.linspace(1.0, 8.0, n), torch.full((n,), 2.5)
 
 
 @pytest.fixture(scope="module")
@@ -95,20 +52,6 @@ def grown():
     run = JM.make_run_sims(JM.nn_child_evaluator(stub_apply), scfg)
     trees, _ = JM.init_batch(31, B, scfg)
     return jax.jit(run)(None, None, trees, jax.random.PRNGKey(6))
-
-
-def jax_planes(key, B_, D, policy="clt"):
-    """The planes `select_batched_pallas` draws from its key: gumbels, and
-    normal (mc) or gumbel (random) per-child planes, zeros otherwise."""
-    k_low, k_pol = jax.random.split(key)
-    g = jax.random.gumbel(k_low, (B_, D, 7))
-    if policy == "mc":
-        rnd = jax.random.normal(k_pol, (B_, D, 7))
-    elif policy == "random":
-        rnd = jax.random.gumbel(k_pol, (B_, D, 7))
-    else:
-        rnd = jnp.zeros((B_, D, 7), jnp.float32)
-    return torch.as_tensor(np.array(g)), torch.as_tensor(np.array(rnd))
 
 
 # ---------------------------------------------------------------------------
@@ -219,27 +162,6 @@ SLICE_B, SLICE_SIMS, SLICE_MOVES = B, 6, 3
 SLICE_JCFG, SLICE_TCFG = JCFG, TCFG
 
 
-class JaxKeyPlanes:
-    """Replays the JAX driver's key schedule: per move
-    `key, sub = split(key)` (SelfPlayDriver.step), `_, k_sims, _ =
-    split(sub, 3)` (make_move_fn), then per sim `key, k_sel, _ =
-    split(key, 3)` (make_run_sims) and the gumbel draw of
-    `select_batched_pallas` from `split(k_sel)[0]`."""
-
-    def __init__(self, seed):
-        self.key = jax.random.PRNGKey(seed)
-
-    def next_move(self):
-        """The key the JAX driver hands its move program for the next move."""
-        self.key, sub = jax.random.split(self.key)
-        self._k = jax.random.split(sub, 3)[1]
-        return sub
-
-    def __call__(self, B_, D):
-        self._k, k_sel, _ = jax.random.split(self._k, 3)
-        return jax_planes(k_sel, B_, D)
-
-
 @pytest.fixture(scope="module")
 def jax_move(monkeypatch_module):
     """The JAX move program on its kernel path, with an evaluator that is
@@ -254,8 +176,7 @@ def jax_move(monkeypatch_module):
         nv, nvar = net_apply(p["net"], u, x)
         return jnp.where(p["stub"], sv, nv), jnp.where(p["stub"], svar, nvar)
 
-    scfg = JM.SearchConfig(tree=SLICE_JCFG, sims=SLICE_SIMS, evaluator="lp")
-    move = jax.jit(JM.make_move_fn(JM.nn_child_evaluator(apply), scfg, store=False))
+    move = jax_move_program(JM.nn_child_evaluator(apply), SLICE_JCFG, SLICE_SIMS, "lp")
     return move, model
 
 
@@ -271,41 +192,13 @@ def test_slice_matches_jax(jax_move, evaluator):
     move_j, model_j = jax_move
     stub = evaluator == "stub"
     params = {"net": model_j.params, "stub": jnp.asarray(stub)}
-    jtrees, jenvs = JM.init_batch(5, SLICE_B, JM.SearchConfig(tree=SLICE_JCFG))
-    replay = JM.init_replay(16)
-
     if stub:
         ev = M.nn_child_evaluator(torch_stub)
         tol = STAT_TOL
     else:
-        model = VVModel(device="cpu")
-        p_np = jax.tree.map(np.asarray, model_j.params)
-        model.load_state(*params_from_jax(p_np, model_j.ubound, model_j.lbound))
-        ev = M.nn_child_evaluator(model.apply_fn())
+        ev = M.nn_child_evaluator(port_vvmodel(model_j).apply_fn())
         tol = dict(rtol=1e-4, atol=1e-3)
     planes = JaxKeyPlanes(0)
     move_t = M.make_move_fn(ev, M.SearchConfig(tree=SLICE_TCFG, sims=SLICE_SIMS), planes)
-    ttrees, tenvs = M.init_batch(5, SLICE_B, M.SearchConfig(tree=SLICE_TCFG), device="cpu")
-    assert_tree_equal(ttrees, jtrees)
-
-    for mv in range(SLICE_MOVES):
-        sub = planes.next_move()
-        jtrees, jenvs, replay, jst = move_j(params, model_j.ubound, jtrees, jenvs,
-                                            replay, sub)
-        tenvs, tst = move_t(ttrees, tenvs)
-        np.testing.assert_array_equal(tst.action.numpy(), np.asarray(jst.action),
-                                      err_msg=f"move {mv}")
-        np.testing.assert_array_equal(tenvs.numpy(), as_i32(JE.pack_state(jenvs)))
-        np.testing.assert_array_equal(tst.reset.numpy(), np.asarray(jst.reset))
-        np.testing.assert_array_equal(tst.n_nodes.numpy(), np.asarray(jst.n_nodes))
-        np.testing.assert_allclose(tst.child_stats.numpy(), np.asarray(jst.child_stats),
-                                   **tol)
-        assert_tree_equal(ttrees, jtrees, stats_tol=tol, msg=f"move {mv}")
-
-    # traces: one more select walk on the final trees, same planes
-    key = jax.random.PRNGKey(21)
-    want = JW.select_batched_pallas(jtrees, key, SLICE_JCFG)
-    got = W.select_walk(ttrees, *jax_planes(key, SLICE_B, SLICE_JCFG.max_depth),
-                        SLICE_TCFG)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    run_slice(move_j, params, model_j.ubound, move_t, planes, SLICE_JCFG, SLICE_TCFG,
+              SLICE_B, SLICE_MOVES, tol)

@@ -1,12 +1,21 @@
-"""`play` entry point of the port: frozen-net ValueSimLP self-play.
+"""`play` entry point of the port: frozen-net MCTS self-play.
 
-Mirrors the reference `cli/play.py` on the path it ports:
-`python -m tetris_mcts_tpu play --agent_type ValueSimLP` without `--online`
-(benchmark mode: no training, no storage), with the VV net's weights made
-from `--seed`. Only the flags that path reads are accepted; any other
-reference flag is refused with a message that names it.
+Mirrors the reference `cli/play.py` without `--online` (benchmark mode: no
+training, no storage), with the VV net's weights made from `--seed`, for
+the agent types whose evaluator is ported (`AGENT_TYPES`, the reference's
+agent -> evaluator map):
 
-    python -m tetris_mcts_tpu_torch play --batch 64 --mcts_sims 100 --ngames 4
+- ValueSimLP: the lp evaluator (the net on the leaf's 7 children);
+- ValueSim, ValueSimOnline, ValueSimBayes: the leaf evaluator (the net on
+  the leaf); ValueSimBayes forces `--policy bayes`;
+- Vanilla, VanillaC, Random: the rollout evaluator (uniform-random
+  playouts); Random searches with one simulation.
+
+`low` follows the reference: 10 under bayes, 5 for Vanilla/VanillaC, else
+1. The reference's other agent types, and any reference flag this path does
+not read, are refused with a message that names them.
+
+    python -m tetris_mcts_tpu_torch play --agent_type ValueSim --ngames 4
 """
 
 from __future__ import annotations
@@ -18,8 +27,19 @@ import torch
 
 from tetris_mcts_tpu_torch.ops.tree_walk import POLICIES
 
-# the JAX CLI's ValueSimLP defaults: --batch 64, --mcts_sims 100,
-# --max_nodes/--max_obs 4096, --max_depth 96, clt policy, gamma 0.999
+# the JAX CLI's defaults: --batch 64, --mcts_sims 100, --max_nodes/--max_obs
+# 4096, --max_depth 96, clt policy, gamma 0.999
+
+# agent type -> evaluator, for the agents the port runs
+AGENT_TYPES = {
+    "ValueSimLP": "lp",
+    "ValueSim": "leaf", "ValueSimOnline": "leaf", "ValueSimBayes": "leaf",
+    "Vanilla": "rollout", "VanillaC": "rollout", "Random": "rollout",
+}
+# the reference CLI's other agent types, not ported yet
+UNPORTED_AGENT_TYPES = ("ValueSimC", "ApproxPolicyIter", "DistValueSim",
+                        "HybridSim", "FiniteSim", "FullSim", "ValueSim2",
+                        "DQN", "DistDQN")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Batched MCTS Tetris self-play with a frozen VV net "
                     "(PyTorch/CUDA port)",
     )
-    p.add_argument("--agent_type", default="ValueSimLP", choices=("ValueSimLP",))
+    p.add_argument("--agent_type", default="ValueSimLP",
+                   choices=tuple(AGENT_TYPES) + UNPORTED_AGENT_TYPES)
     p.add_argument("--mcts_sims", type=int, default=100)
     p.add_argument("--ngames", type=int, default=50)
     p.add_argument("--benchmark", action="store_true",
@@ -60,17 +81,30 @@ def main(argv=None):
     if unknown:
         parser.error(
             f"not supported by the port yet: {' '.join(unknown)} (the port "
-            "runs frozen-net ValueSimLP self-play; see README.md)")
+            "runs frozen-net self-play; see README.md)")
+    if args.agent_type in UNPORTED_AGENT_TYPES:
+        parser.error(
+            f"--agent_type {args.agent_type} is not ported yet (the port runs "
+            f"{', '.join(AGENT_TYPES)})")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to run the plain versions)")
+    if args.agent_type == "ValueSimBayes":
+        args.policy = "bayes"  # the agent is the policy choice
+    if args.policy == "bayes":
+        low = 10  # select_index_bayes min_n
+    elif args.agent_type in ("Vanilla", "VanillaC"):
+        low = 5   # Vanilla.py low=5
+    else:
+        low = 1
     cfg = SelfPlayConfig(
-        batch=args.batch, sims=args.mcts_sims, max_nodes=args.max_nodes,
-        max_obs=args.max_obs,
+        batch=args.batch, sims=1 if args.agent_type == "Random" else args.mcts_sims,
+        evaluator=AGENT_TYPES[args.agent_type],
+        max_nodes=args.max_nodes, max_obs=args.max_obs,
         # power of two and >= 2x max_obs, as the reference CLI sizes it
         table_size=max(1 << (2 * args.max_obs - 1).bit_length(), 16),
         max_depth=args.max_depth, gamma=args.gamma, policy=args.policy,
-        low=10 if args.policy == "bayes" else 1, bf16=args.bf16,
+        low=low, bf16=args.bf16,
         seed=args.seed, actions_per_drop=args.app, scoring=args.scoring,
         randomizer=args.randomizer,
     )

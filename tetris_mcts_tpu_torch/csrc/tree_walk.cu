@@ -1,4 +1,4 @@
-// The three MCTS walk kernels of the main path, hand-written for Hopper
+// The four MCTS walk kernels of the search, hand-written for Hopper
 // (sm_90a), with a plain C interface loaded through ctypes
 // (tetris_mcts_tpu_torch/ops/build.py, ops/tree_walk.py).
 //
@@ -6,6 +6,7 @@
 //   select_walk     <- _select_kernel (select_walk / select_batched_pallas)
 //   insert7_walk    <- _insert7_kernel (insert7_walk / insert_obs7_batched_pallas)
 //   lp_backup_walk  <- _lp_backup_kernel (lp_backup_walk / lp_backup_batched_pallas)
+//   backup_walk     <- _backup_kernel (backup_walk / backup_batched_pallas)
 //
 // What bounds them on this card: every walk is a chain of dependent loads
 // (a node's child base, its 7 children, their obs statistics, then the next
@@ -324,6 +325,34 @@ __global__ void insert7_kernel(const uint32_t* __restrict__ packed7,
 }
 
 // ---------------------------------------------------------------------------
+// The reverse Welford + gamma walk up one lane's trace, shared by the LP and
+// the plain backup kernels (as the TPU kernels share _reverse_welford_walk),
+// so a fix reaches both. Levels run strictly in order: a trace can hold the
+// same obs twice. A first visit sets (v_rel, var0); later ones run the
+// Welford mean/var update. Then v <- gamma * v_rel + node score.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void reverse_welford_walk(
+    const int* tr, int len, const float* score, const float* obs_id,
+    float* vis, float* val, float* var_, float v, float var0, float gamma) {
+  for (int t = len - 1; t >= 0; --t) {
+    int idx = tr[t];
+    float s = score[idx];
+    int o = (int)obs_id[idx];
+    float n = vis[o], valo = val[o], varo = var_[o];
+    float v_rel = v - s;
+    bool first = n == 0.0f;
+    float delta = v_rel - valo;
+    float val_new = first ? v_rel : valo + delta / (n + 1.0f);
+    float delta2 = v_rel - val_new;
+    float var_new = first ? var0 : varo + (delta * delta2 - varo) / (n + 1.0f);
+    vis[o] = n + 1.0f;
+    val[o] = val_new;
+    var_[o] = var_new;
+    v = gamma * v_rel + s;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // LP backup: seed the leaf's fresh unique children, average, then the
 // reverse Welford + gamma walk up the trace
 // ---------------------------------------------------------------------------
@@ -377,22 +406,26 @@ __global__ void lp_backup_kernel(const int* __restrict__ traces,
   float kf = (float)max(k, 1);
   float v = exp_ ? v_sum / kf : score[leaf];
   const float var0 = exp_ ? var_sum * gamma * gamma / kf : 0.0f;
-  for (int t = len - 1; t >= 0; --t) {
-    int idx = tr[t];
-    float s = score[idx];
-    int o = (int)obs_id[idx];
-    float n = vis[o], valo = val[o], varo = var_[o];
-    float v_rel = v - s;
-    bool first = n == 0.0f;
-    float delta = v_rel - valo;
-    float val_new = first ? v_rel : valo + delta / (n + 1.0f);
-    float delta2 = v_rel - val_new;
-    float var_new = first ? var0 : varo + (delta * delta2 - varo) / (n + 1.0f);
-    vis[o] = n + 1.0f;
-    val[o] = val_new;
-    var_[o] = var_new;
-    v = gamma * v_rel + s;
-  }
+  reverse_welford_walk(tr, len, score, obs_id, vis, val, var_, v, var0, gamma);
+}
+
+// ---------------------------------------------------------------------------
+// backup: the reverse Welford + gamma walk from given (v0, var0) per lane
+// (the leaf and rollout evaluators' backup)
+// ---------------------------------------------------------------------------
+__global__ void backup_kernel(const int* __restrict__ traces,
+                              const int* __restrict__ lengths,
+                              const float* __restrict__ v0,
+                              const float* __restrict__ var0,
+                              const float* __restrict__ nstat, float* visits,
+                              float* values, float* vars, int B, int N, int M,
+                              int D, float gamma) {
+  int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float* score = nstat + (size_t)b * 2 * N;
+  reverse_welford_walk(traces + (size_t)b * D, lengths[b], score, score + N,
+                       visits + (size_t)b * M, values + (size_t)b * M,
+                       vars + (size_t)b * M, v0[b], var0[b], gamma);
 }
 
 inline int blocks(int B) { return (B + kThreads - 1) / kThreads; }
@@ -441,6 +474,17 @@ int lp_backup_walk(const void* traces, const void* lengths, const void* v_nn,
       (const float*)var_nn, (const bool*)expanded, (const int*)cbase,
       (const float*)nstat, (const bool*)end, (float*)visits, (float*)values,
       (float*)vars, B, N, M, D, gamma);
+  return (int)cudaGetLastError();
+}
+
+int backup_walk(const void* traces, const void* lengths, const void* v0,
+                const void* var0, const void* nstat, void* visits,
+                void* values, void* vars, int B, int N, int M, int D,
+                float gamma, void* stream) {
+  backup_kernel<<<blocks(B), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)traces, (const int*)lengths, (const float*)v0,
+      (const float*)var0, (const float*)nstat, (float*)visits,
+      (float*)values, (float*)vars, B, N, M, D, gamma);
   return (int)cudaGetLastError();
 }
 

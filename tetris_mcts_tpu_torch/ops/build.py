@@ -1,15 +1,26 @@
-"""Build and load the walk kernels (`csrc/tree_walk.cu`) at first use.
+"""Build and load the port's CUDA kernels (`csrc/`) at first use.
 
-One `nvcc` call compiles the source into a shared library with a plain C
-interface (`-gencode arch=compute_90a,code=sm_90a`), which is loaded with
-`ctypes`. The library goes to `tetris_mcts_tpu_torch/build/` (listed in
-.gitignore) under a name that carries a hash of the sources, so an edited
+Each library is one `nvcc` call that compiles its source into a shared
+library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`),
+loaded with `ctypes`:
+
+| library | source | kernels |
+| --- | --- | --- |
+| `tree_walk` | `csrc/tree_walk.cu` (+ `env_packed.cuh`) | select, insert7, LP backup, backup |
+| `vv_forward` | `csrc/vv_forward.cu` | the fused packed-board VV forward |
+
+A library goes to `tetris_mcts_tpu_torch/build/` (listed in .gitignore)
+under a name that carries a hash of its sources and flags, so an edited
 source is rebuilt and concurrent processes never load a half-written file.
-Nothing is built or loaded at import time.
+`build_all()` starts every library's `nvcc` at once. Nothing is built or
+loaded at import time.
 
-`--fmad=false` keeps every float multiply and add a separate IEEE operation,
-as PyTorch's elementwise kernels compute them, so the kernels and their
-plain versions round alike.
+The walk kernels are built with `--fmad=false`: every float multiply and
+add stays a separate IEEE operation, as PyTorch's elementwise kernels
+compute them, so the kernels and their plain versions round alike (their
+contract is bit-exactness). The forward is built without it: its contract
+is a tolerance (rtol 1e-4), and contracted multiply-adds halve its
+instruction count.
 """
 
 from __future__ import annotations
@@ -21,27 +32,44 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("tree_walk.cu", "env_packed.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures (csrc/tree_walk.cu); every function returns cudaGetLastError().
-SIGNATURES = {
-    "select_walk": [_P] * 16 + [_I] * 9 + [_P],
-    "insert7_walk": [_P] * 10 + [_I] * 3 + [_P],
-    "lp_backup_walk": [_P] * 11 + [_I] * 4 + [_F, _P],
+
+
+class Library(NamedTuple):
+    source: str
+    includes: tuple
+    flags: tuple
+    # C signatures; every function returns a cudaError_t (0 = launched).
+    signatures: dict
+
+
+LIBRARIES = {
+    "tree_walk": Library(
+        "tree_walk.cu", ("env_packed.cuh",), _BASE_FLAGS + ("--fmad=false",), {
+            "select_walk": [_P] * 16 + [_I] * 9 + [_P],
+            "insert7_walk": [_P] * 10 + [_I] * 3 + [_P],
+            "lp_backup_walk": [_P] * 11 + [_I] * 4 + [_F, _P],
+            "backup_walk": [_P] * 8 + [_I] * 4 + [_F, _P],
+        }),
+    "vv_forward": Library(
+        "vv_forward.cu", (), _BASE_FLAGS, {
+            "vv_forward": [_P] * 14 + [_I, _P],
+        }),
 }
 
-_lib = None
-build_seconds = None
-ptxas_log = ""
+_libs = {}
+build_seconds = {}  # library -> nvcc wall seconds (0.0 when already built)
+ptxas_log = {}      # library -> nvcc's output (-Xptxas -v: registers, smem)
 
 
 def _nvcc() -> str:
@@ -51,47 +79,66 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the walk kernels need the CUDA "
+        raise RuntimeError("nvcc not found: the port's kernels need the CUDA "
                            "toolkit (CUDA_HOME or nvcc on PATH)")
     return found
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
+    spec = LIBRARIES[name]
     h = hashlib.sha1()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libtree_walk-{h.hexdigest()[:12]}.so"
+    for src in (spec.source, *spec.includes):
+        h.update((CSRC / src).read_bytes())
+    h.update(" ".join(spec.flags).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if this source version is not built yet."""
-    global build_seconds, ptxas_log
-    out = library_path()
-    if out.is_file():
-        build_seconds = 0.0
-        return out
+def build_all(names=tuple(LIBRARIES)) -> dict:
+    """Compile every library of `names` not built yet, all nvcc calls
+    running at once. Returns {name: path}; raises if any build fails."""
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].is_file()]
+    for n in names:
+        if n not in todo:
+            build_seconds.setdefault(n, 0.0)
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "tree_walk.cu")]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_seconds = time.perf_counter() - t0
-    ptxas_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{ptxas_log}")
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        spec = LIBRARIES[n]
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *spec.flags, "-o", str(tmp), str(CSRC / spec.source)]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, time.perf_counter())
+    failed = []
+    for n, (proc, tmp, t0) in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += "\nnvcc timed out after 600 s"
+        build_seconds[n] = time.perf_counter() - t0
+        ptxas_log[n] = out
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc failed ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def lib():
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
+def lib(name: str = "tree_walk"):
+    """The loaded kernel library `name` (built on first call)."""
+    if name not in _libs:
+        handle = ctypes.CDLL(str(build_all((name,))[name]))
+        for fn_name, argtypes in LIBRARIES[name].signatures.items():
+            fn = getattr(handle, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+        _libs[name] = handle
+    return _libs[name]

@@ -1,4 +1,4 @@
-"""The three MCTS walk kernels of the main path, with their plain versions.
+"""The four MCTS walk kernels of the search, with their plain versions.
 
 Counterpart of the reference package's `ops/tree_walk.py`, whose Pallas
 kernels these replace:
@@ -8,6 +8,7 @@ kernels these replace:
 | `select_walk` | `select_walk_plain` | `_select_kernel` via `select_batched_pallas` |
 | `insert_obs7` | `tree.insert_obs7_batched` | `_insert7_kernel` via `insert_obs7_batched_pallas` |
 | `lp_backup` | `lp_backup_plain` (`tree.lp_seed` + `tree.backup_batched`) | `_lp_backup_kernel` via `lp_backup_batched_pallas` |
+| `backup` | `tree.backup_batched` | `_backup_kernel` via `backup_batched_pallas` |
 
 Each wrapper takes the batched `Tree` and launches its CUDA kernel
 (`csrc/tree_walk.cu`, built by `ops/build.py`) when the tree lies on a CUDA
@@ -42,7 +43,8 @@ N_ACTIONS = T.N_ACTIONS
 POLICIES = ("clt", "bayes", "gauss", "ucbv", "mc", "random", "greedy")
 
 # Kernel launches per wrapper, counted where each kernel is launched.
-LAUNCHES = {"select_walk": 0, "insert7_walk": 0, "lp_backup_walk": 0}
+LAUNCHES = {"select_walk": 0, "insert7_walk": 0, "lp_backup_walk": 0,
+            "backup_walk": 0}
 
 
 def reset_launches():
@@ -252,3 +254,26 @@ def lp_backup(trees: T.Tree, traces, lengths, v_nn, var_nn, expanded,
     _launch("lp_backup_walk", traces, lengths, v_nn, var_nn, expanded,
             trees.cbase, trees.nstat, trees.end, trees.visits, trees.values,
             trees.vars_, B, N, M, D, float(cfg.gamma))
+
+
+# ---------------------------------------------------------------------------
+# backup from given (v0, var0): the leaf and rollout evaluators
+# ---------------------------------------------------------------------------
+
+def backup(trees: T.Tree, traces, lengths, v0, var0, cfg: T.TreeConfig):
+    """Back (v0, var0) up every trace with the reverse Welford+gamma walk
+    (`backup_trace_obs`); the plain version is `tree.backup_batched`.
+    traces (B, D) int32, lengths (B,) int32, v0/var0 (B,) float;
+    visits/values/vars_ are updated in place."""
+    if not _on_cuda(trees.cbase):
+        return T.backup_batched(trees, traces, lengths, v0, var0, cfg)
+    B, N, M = _tree_checks(trees, cfg)
+    D = traces.shape[1]
+    _check("traces", traces, torch.int32, (B, D))
+    _check("lengths", lengths, torch.int32, (B,))
+    v0 = v0.to(torch.float32).contiguous()
+    var0 = var0.to(torch.float32).contiguous()
+    _check("v0", v0, torch.float32, (B,))
+    _check("var0", var0, torch.float32, (B,))
+    _launch("backup_walk", traces, lengths, v0, var0, trees.nstat, trees.visits,
+            trees.values, trees.vars_, B, N, M, D, float(cfg.gamma))

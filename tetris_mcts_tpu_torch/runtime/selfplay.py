@@ -1,5 +1,6 @@
 """Frozen-net self-play driver (the reference `runtime/selfplay.py`
-`SelfPlayDriver` in benchmark mode: no replay store, no training).
+`SelfPlayDriver` in benchmark mode: no replay store, no training), with
+the lp, leaf or rollout evaluator (`SelfPlayConfig.evaluator`).
 
 B games play MCTS moves in lockstep; each move is one call of the move
 program (`search/mcts.make_move_fn`), which stays on the device. The host
@@ -28,6 +29,7 @@ from tetris_mcts_tpu_torch.train.trainer import VVModel
 class SelfPlayConfig(NamedTuple):
     batch: int = 64
     sims: int = 100
+    evaluator: str = "lp"  # "lp" | "leaf" | "rollout" (mcts.EVALUATORS)
     max_nodes: int = 4096
     max_obs: int = 4096
     table_size: int = 8192
@@ -73,8 +75,9 @@ class EpisodeTracker:
 class SelfPlayDriver:
     """Owns the frozen model (weights made from cfg.seed), the batched
     (trees, envs) device state and the move program, whose select walk
-    draws its planes from a `mcts.TorchPlanes` on the device seeded from
-    cfg.seed. `run(n_moves)` / `run_episodes(n)` advance self-play."""
+    (and rollout) draws its randomness from a `mcts.TorchPlanes` on the
+    device seeded from cfg.seed. `run(n_moves)` / `run_episodes(n)` advance
+    self-play."""
 
     _TP_REPORT_EVERY = 50  # moves per throughput line
 
@@ -91,10 +94,19 @@ class SelfPlayDriver:
             env=EnvConfig(actions_per_drop=cfg.actions_per_drop,
                           scoring=cfg.scoring, randomizer=cfg.randomizer),
         )
-        self.search_cfg = SearchConfig(tree=tree_cfg, sims=cfg.sims)
-        evaluator = mcts.nn_child_evaluator(
-            self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None))
+        self.search_cfg = SearchConfig(tree=tree_cfg, sims=cfg.sims,
+                                       evaluator=cfg.evaluator)
         planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
+        if cfg.evaluator == "lp":
+            evaluator = mcts.nn_child_evaluator(apply_fn)
+        elif cfg.evaluator == "leaf":
+            evaluator = mcts.nn_leaf_evaluator(apply_fn)
+        elif cfg.evaluator == "rollout":
+            evaluator = mcts.rollout_evaluator(self.search_cfg, planes.actions)
+        else:
+            raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
+        self.evaluator = evaluator
         self._move = mcts.make_move_fn(evaluator, self.search_cfg, planes)
         self.trees, self.envs = mcts.init_batch(cfg.seed, cfg.batch,
                                                 self.search_cfg, self.device)

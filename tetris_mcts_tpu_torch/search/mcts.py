@@ -1,24 +1,43 @@
-"""Batched MCTS moves with the leaf-parallel ("lp") evaluator.
+"""Batched MCTS moves with the leaf-parallel, leaf and rollout evaluators.
 
 Counterpart of the reference package's `search/mcts.py` on the path of
-frozen-net ValueSimLP self-play (`store=False`, `episode_reuse=False`).
-One simulation for all B trees:
+frozen-net self-play (`store=False`, `episode_reuse=False`). One
+simulation for all B trees:
 
     select kernel (walk + inline env stepping + the leaf's 7 child steps)
     -> insert kernel (obs ids of the 7 children) -> expand_commit
-    -> NN forward on B x 7 child boards -> LP-backup kernel
+    -> evaluator -> backup
 
-and one move is `sims` simulations, the greedy root action, the real env
-step, the root advance, and the harvest-and-reset of every lane that is
-done, whose pool is full, or whose root could not be allocated: that lane's
-whole tree is wiped and re-rooted at its (soft-reset) env. The move stays on
-the device: it never reads a value back to the host, so the driver's one
-read per move is the only synchronisation.
+Evaluators (`SearchConfig.evaluator`), each `ev(packed7, leaf_env) ->
+(v, var)` on the select kernel's packed child boards (B, 7, 20) and its
+leaf env (B, 44):
+
+- "lp" (ValueSimLP): the net on the B x 7 child boards, then the LP-backup
+  kernel (seed the unique children, average, walk up).
+- "leaf" (ValueSim, ValueSimOnline, ValueSimBayes): the net on the leaf's
+  board only, imaged from the kernel's leaf env; the backup kernel walks
+  up v0 = leaf score + v.
+- "rollout" (Vanilla, VanillaC, Random): a uniform-random playout of at
+  most `rollout_cap` steps from the leaf env; the backup kernel walks up
+  v0 = the playout's final score with variance `rollout_variance`.
+
+A lane that did not expand (a terminal leaf, or no room) backs up
+(leaf score, 0) in the leaf and rollout modes.
+
+One move is `sims` simulations, the greedy root action, the real env step,
+the root advance, and the harvest-and-reset of every lane that is done,
+whose pool is full, or whose root could not be allocated: that lane's whole
+tree is wiped and re-rooted at its (soft-reset) env. The lp and leaf moves
+stay on the device: they never read a value back to the host, so the
+driver's one read per move is the only synchronisation. The rollout reads
+one flag every `ROLLOUT_EXIT_EVERY` playout steps, to stop once every
+playout has ended.
 
 Randomness: the select walk takes pre-drawn (B, D, 7) gumbel planes (and
-per-child planes for the mc/random policies). `TorchPlanes` draws them from
-a `torch.Generator` on the device; a test can pass any other source, for
-example one that replays the JAX key schedule.
+per-child planes for the mc/random policies), and the rollout one action
+draw per step. `TorchPlanes` draws both from a `torch.Generator` on the
+device; a test can pass any other source, for example one that replays the
+JAX key schedule.
 """
 
 from __future__ import annotations
@@ -36,9 +55,19 @@ from tetris_mcts_tpu_torch.search.tree import Tree, TreeConfig
 N_ACTIONS = T.N_ACTIONS
 
 
+EVALUATORS = ("lp", "leaf", "rollout")
+# playout steps between two checks of "every playout has ended" (a host
+# read); ended lanes are no-ops under packed_step, so the check only saves
+# steps and never changes a result
+ROLLOUT_EXIT_EVERY = 16
+
+
 class SearchConfig(NamedTuple):
     tree: TreeConfig = TreeConfig()
     sims: int = 100
+    evaluator: str = "lp"          # "lp" | "leaf" | "rollout"
+    rollout_cap: int = 512         # max random-playout length (rollout mode)
+    rollout_variance: float = 1e3  # fixed rollout variance (Vanilla.py:54)
 
 
 class MoveStats(NamedTuple):
@@ -55,9 +84,10 @@ class MoveStats(NamedTuple):
 
 
 class TorchPlanes:
-    """Per-simulation randomness of the select walk from a torch.Generator:
+    """Per-simulation randomness from a torch.Generator: the select walk's
     gumbels (B, D, 7), and normal (mc) or gumbel (random) per-child planes
-    for those policies, zeros otherwise."""
+    for those policies, zeros otherwise (`__call__`); and the rollout's
+    uniform action draws (`actions`)."""
 
     def __init__(self, seed: int, device, policy: str = "clt"):
         self.gen = torch.Generator(device=device)
@@ -80,27 +110,73 @@ class TorchPlanes:
             rnd = torch.zeros(shape, device=self.device)
         return g, rnd
 
+    def actions(self, B: int, step: int):
+        """Uniform actions (B,) for playout step `step` of a rollout."""
+        return torch.randint(0, N_ACTIONS, (B,), generator=self.gen,
+                             device=self.device)
+
 
 def nn_child_evaluator(net_fn: Callable):
     """Evaluate the 7 children of every leaf in one forward pass.
     net_fn: float images (n, 1, 20, 10) -> (v (n,), var (n,))."""
 
-    def ev(child_imgs):
-        B = child_imgs.shape[0]
-        v, var = net_fn(child_imgs.reshape(B * N_ACTIONS, 1, 20, 10).float())
+    def ev(packed7, leaf_env):
+        B = packed7.shape[0]
+        imgs = engine.unpack_obs(packed7).reshape(B * N_ACTIONS, 1, 20, 10)
+        v, var = net_fn(imgs.float())
         return v.reshape(B, N_ACTIONS), var.reshape(B, N_ACTIONS)
 
+    return ev
+
+
+def nn_leaf_evaluator(net_fn: Callable):
+    """Evaluate the leaf's board only (ValueSim single-leaf semantics),
+    imaged from the select kernel's leaf env."""
+
+    def ev(packed7, leaf_env):
+        imgs = engine.unpack_obs(EP.packed_obs(leaf_env))[:, None]
+        return net_fn(imgs.float())  # (B,), (B,)
+
+    return ev
+
+
+def rollout_evaluator(cfg: SearchConfig, draw: Callable):
+    """Uniform-random playout from the leaf env to game end, at most
+    cfg.rollout_cap steps (the Vanilla agent's evaluator): value = the
+    playout's final score, variance cfg.rollout_variance. All B playouts
+    advance in lockstep; ended lanes are no-ops. draw(B, step) gives the
+    actions (B,) of each step (`TorchPlanes.actions`). `ev.steps` holds the
+    number of steps the last call ran."""
+    env_kw = dict(actions_per_drop=cfg.tree.env.actions_per_drop,
+                  scoring=cfg.tree.env.scoring, randomizer=cfg.tree.env.randomizer)
+
+    def ev(packed7, leaf_env):
+        B = leaf_env.shape[0]
+        env = leaf_env
+        step = 0
+        while step < cfg.rollout_cap:
+            if step % ROLLOUT_EXIT_EVERY == 0 and bool((env[:, 43] != 0).all()):
+                break
+            env = EP.packed_step(env, draw(B, step), **env_kw)
+            step += 1
+        ev.steps = step
+        v = env[:, 36].to(torch.float32)
+        return v, torch.full((B,), cfg.rollout_variance, device=v.device)
+
+    ev.steps = 0
     return ev
 
 
 def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
     """`run(trees)`: cfg.sims simulations on B trees, in place."""
     tcfg = cfg.tree
+    if cfg.evaluator not in EVALUATORS:
+        raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
 
     def sim_once(trees: Tree):
         B = trees.root.shape[0]
         gumbels, rnd = planes(B, tcfg.max_depth)
-        (traces, lengths, leafs, _leaf_env, packed7, child_sc7,
+        (traces, lengths, leafs, leaf_env, packed7, child_sc7,
          child_end7) = tree_walk.select_walk(trees, gumbels, rnd, tcfg)
         b = torch.arange(B, device=leafs.device)
         lc = leafs.long()
@@ -111,9 +187,19 @@ def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
         end7 = child_end7 != 0
         obs7 = tree_walk.insert_obs7(trees, packed7, end7, can, tcfg)
         T.expand_commit(trees, child_sc7, end7, obs7, leafs, can)
-        v, var = evaluator(engine.unpack_obs(packed7))
-        tree_walk.lp_backup(trees, traces, lengths, v.float().contiguous(),
-                            var.float().contiguous(), can, tcfg)
+        v, var = evaluator(packed7, leaf_env)
+        v, var = v.float().contiguous(), var.float().contiguous()
+        if cfg.evaluator == "lp":
+            tree_walk.lp_backup(trees, traces, lengths, v, var, can, tcfg)
+            return
+        leaf_score = trees.nstat[b, 0, lc]
+        # leaf: absolute value = leaf score + net value; rollout: the
+        # playout's absolute final score. Lanes that did not expand back up
+        # (leaf score, 0) (`agents/ValueSim.py:83-93`).
+        v0 = torch.where(can, leaf_score + v if cfg.evaluator == "leaf" else v,
+                         leaf_score)
+        var0 = torch.where(can, var, 0.0)
+        tree_walk.backup(trees, traces, lengths, v0, var0, tcfg)
 
     def run(trees: Tree):
         for _ in range(cfg.sims):
