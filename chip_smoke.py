@@ -27,15 +27,19 @@ of the JAX package. Phases, each printing its elapsed seconds:
 7. rollout: Vanilla self-play (low 5, rollout_cap 512) at B=64 with 4 sims
    for 2 moves; the backup walk must launch moves x sims times;
 8. forward: the fused packed-board forward's own entry
-   (`vv_forward_packed`) on the search's boards: the 448 child boards of
-   one lp simulation and the 64 leaf boards of one leaf simulation;
+   (`vv_forward_packed`, two launches counted as one call) on the search's
+   boards: the 448 child boards of one lp simulation and the 64 leaf boards
+   of one leaf simulation; then the TPU micro-benchmark walk's entry
+   (`bench_walk`) at the script's B=256, M=2048;
 9. kernels: on the trees those paths grew, each kernel against its plain
    version (integers exact; values/vars within rtol 1e-6 / atol 1e-5; the
-   select kernel under every selection rule it accepts; the forward within
-   rtol 1e-4, atol 1e-3 / 1e-2 against its plain version and `VVNet`),
-   with the kernel's device time a launch (torch.profiler), the time of a
-   call through its wrapper and of its plain version (CUDA events), a
-   bound, and for the forward the device time of the `VVNet` forward.
+   select kernel under every selection rule it accepts, on the lp and the
+   leaf trees; the forward within rtol 1e-4, atol 1e-3 / 1e-2 against its
+   plain version and `VVNet`, also on 1792 boards; the bench walk exact),
+   with the kernel's device time a launch (torch.profiler; for the forward
+   both of its kernels), the time of a call through its wrapper and of its
+   plain version (CUDA events), a bound, and for the forward the device
+   time of the `VVNet` forward.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints a JSON `kernels` line, the card's name and power
@@ -67,6 +71,24 @@ def nvidia_smi():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """One entry per kernel of nvcc's -Xptxas -v output: its name, stack
+    frame, spills, registers and shared memory."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for _ZN\d+\w+?\d+(\w+?_kernel)", ln)
+        if m:
+            name = m.group(1)
+        elif name and "stack frame" in ln:
+            out.append(f"{name}: {ln.strip()}")
+        elif name and "registers" in ln:
+            out[-1] += "; " + ln.split(":", 1)[1].strip()
+            name = None
+    return out
 
 
 def close(name, got, want, exact, rtol=1e-6, atol=1e-5):
@@ -111,14 +133,16 @@ def cuda_ms(fn, reps, setup=None):
     return e0.elapsed_time(e1) / reps
 
 
-def device_ms(fn, reps, kernel, setup=None):
-    """Device time of one launch of `kernel` (its qualified name in csrc/,
-    e.g. "tmt::select_kernel"): fn() is called reps times under
-    torch.profiler, and the device-side time of the launches the profiler
-    recorded is averaged. The host's time between launches is not counted.
-    The profiler can miss launches at the start of a session (1 to 3 of 20
-    seen on the H100); the mean is over the launches it recorded, and fewer
-    than half of reps, or more than reps, raise."""
+def device_ms(fn, reps, kernel, setup=None, parts=None):
+    """Device time of one call's launches of `kernel` (its qualified name in
+    csrc/, e.g. "tmt::select_kernel", or a tuple of names for a call that
+    launches several kernels: their mean times a launch are summed): fn() is
+    called reps times under torch.profiler, and the device-side time of the
+    launches the profiler recorded is averaged. The host's time between
+    launches is not counted. The profiler can miss launches at the start of a
+    session (1 to 3 of 20 seen on the H100); the mean is over the launches it
+    recorded, and fewer than half of reps, or more than reps, raise. Each
+    kernel's own mean goes into the dict `parts` when one is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,12 +153,19 @@ def device_ms(fn, reps, kernel, setup=None):
         for a in args:
             fn(*a)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.key]
-    n = sum(e.count for e in rows)
-    if not reps // 2 <= n <= reps:
-        raise AssertionError(f"{kernel}: profiler saw {n} launches, want {reps}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / n
+    total = 0.0
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        rows = [e for e in prof.key_averages()  # "name(" or a template's "name<"
+                if e.device_type == DeviceType.CUDA
+                and (f"{name}(" in e.key or f"{name}<" in e.key)]
+        n = sum(e.count for e in rows)
+        if not reps // 2 <= n <= reps:
+            raise AssertionError(f"{name}: profiler saw {n} launches, want {reps}")
+        ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
+        if parts is not None:
+            parts[name] = ms
+        total += ms
+    return total
 
 
 def stub_evaluator(x):
@@ -232,6 +263,11 @@ def bytes_backup(lengths, B):
     return B * 12 + levels * (4 + 8 + 24)
 
 
+def bytes_bench_walk(L, B, M):
+    # idxs in; the three (M, B) statistics read once and written once
+    return L * B * 4 + 2 * 3 * M * B * 4
+
+
 # multiply-adds of one board through the VV net: conv1 18*8*32*9, conv2
 # 16*6*32*288, conv3 14*4*32*288, fc1 1792*256, fc2 256*2
 VV_MACS = 18 * 8 * 32 * 9 + 16 * 6 * 32 * 288 + 14 * 4 * 32 * 288 + 1792 * 256 + 256 * 2
@@ -264,16 +300,17 @@ def device_ms_all(fn, reps):
 
 
 def reset_launches():
-    from tetris_mcts_tpu_torch.ops import tree_walk, vv_forward
+    from tetris_mcts_tpu_torch.ops import bench_walk, tree_walk, vv_forward
 
     tree_walk.reset_launches()
     vv_forward.reset_launches()
+    bench_walk.reset_launches()
 
 
 def read_launches():
-    from tetris_mcts_tpu_torch.ops import tree_walk, vv_forward
+    from tetris_mcts_tpu_torch.ops import bench_walk, tree_walk, vv_forward
 
-    return {**tree_walk.LAUNCHES, **vv_forward.LAUNCHES}
+    return {**tree_walk.LAUNCHES, **vv_forward.LAUNCHES, **bench_walk.LAUNCHES}
 
 
 def check_launches(path, got, want):
@@ -358,10 +395,8 @@ def main() -> int:
     build.build_all()
     for name in build.LIBRARIES:
         build.lib(name)
-        regs = [ln.strip() for ln in build.ptxas_log.get(name, "").splitlines()
-                if "registers" in ln or "smem" in ln]
         say(f"phase build: {name}: nvcc {build.build_seconds[name]:.1f}s; ptxas: "
-            f"{' | '.join(regs)}")
+            f"{' | '.join(ptxas_summary(build.ptxas_log.get(name, '')))}")
     say(f"phase build took {time.perf_counter() - t:.1f}s (nvcc calls in parallel, "
         f"with load)")
 
@@ -451,36 +486,64 @@ def main() -> int:
     say(f"phase forward: vv_forward_packed on {', '.join(f'{x.shape[0]} {k}' for k, x in boards.items())}; "
         f"launches {fwd_launches}; in {time.perf_counter() - t:.1f}s")
 
+    # ---- 8b. the micro-benchmark walk's entry, at the script's shapes --------
+    t = time.perf_counter()
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.ops import bench_walk
+
+    bw_B, bw_M = 256, 2048
+    rng = np.random.RandomState(0)
+    bw_idxs = torch.as_tensor(rng.randint(1, bw_M, (bench_walk.LEVELS, bw_B)).astype(np.int32),
+                              device="cuda")
+    bw_stats = [torch.zeros(bw_M, bw_B, device="cuda") for _ in range(3)]
+    reset_launches()
+    bw_out = bench_walk.bench_walk(bw_idxs, *bw_stats)
+    torch.cuda.synchronize()
+    bw_launches = read_launches()
+    check_launches("bench walk", bw_launches, {"bench_walk": 1})
+    say(f"phase bench walk: bench_walk at B={bw_B}, M={bw_M}, {bench_walk.LEVELS} levels; "
+        f"launches {bw_launches}; in {time.perf_counter() - t:.1f}s")
+
     # ---- 9. kernels vs plain on the grown trees -----------------------------
     t = time.perf_counter()
     rows = []
 
     # every selection rule the kernel accepts (low=1 lets the rule's bound
-    # decide; low=10 is the CLI's bayes setting), then the main path's clt
+    # decide; low=10 is the CLI's bayes setting), then the main path's clt,
+    # on the trees of the lp and of the leaf path
     names = ("traces", "lengths", "leafs", "leaf_env", "child_packed",
              "child_score", "child_end")
     cases = [(p, 1) for p in tree_walk.POLICIES if p != "clt"] + [("bayes", 10)]
-    for policy, low in cases + [("clt", tcfg.low)]:
-        pcfg = tcfg._replace(policy=policy, low=low)
-        gum, rnd = mcts.TorchPlanes(123, "cuda", policy)(B, D)
-        out_k = tree_walk.select_walk(trees, gum, rnd, pcfg)
-        out_p = tree_walk.select_walk_plain(trees, gum, rnd, pcfg)
-        for n, a, b in zip(names, out_k, out_p):
-            close(f"select[{policy}, low={low}] {n}", a, b, True)
-    say(f"kernel select_walk: all 7 outputs equal to plain for "
-        f"{', '.join(f'{p}/low={lo}' for p, lo in cases)} and clt (the main path's)")
-    ms_k = device_ms(lambda: tree_walk.select_walk(trees, gum, rnd, tcfg), 20,
-                     "tmt::select_kernel")
-    ev_k = cuda_ms(lambda: tree_walk.select_walk(trees, gum, rnd, tcfg), 20)
-    ms_p = cuda_ms(lambda: tree_walk.select_walk_plain(trees, gum, rnd, tcfg), 2)
+    for label, tt in (("lp", trees), ("leaf", leaf_trees)):
+        for policy, low in cases + [("clt", tcfg.low)]:
+            pcfg = tcfg._replace(policy=policy, low=low)
+            gum, rnd = mcts.TorchPlanes(123, "cuda", policy)(B, D)
+            out_k = tree_walk.select_walk(tt, gum, rnd, pcfg)
+            out_p = tree_walk.select_walk_plain(tt, gum, rnd, pcfg)
+            for n, a, b in zip(names, out_k, out_p):
+                close(f"select[{label} trees, {policy}, low={low}] {n}", a, b, True)
+    say(f"kernel select_walk: all 7 outputs equal to plain on the lp and the leaf trees "
+        f"for {', '.join(f'{p}/low={lo}' for p, lo in cases)} and clt (the main path's)")
+    sel_ms = {}
+    for label, tt in (("lp", trees), ("leaf", leaf_trees)):
+        gum, rnd = mcts.TorchPlanes(123, "cuda", tcfg.policy)(B, D)
+        out_k = tree_walk.select_walk(tt, gum, rnd, tcfg)
+        sel = lambda: tree_walk.select_walk(tt, gum, rnd, tcfg)
+        sel_ms[label] = (device_ms(sel, 20, "tmt::select_kernel"), cuda_ms(sel, 20),
+                         cuda_ms(lambda: tree_walk.select_walk_plain(tt, gum, rnd, tcfg), 2),
+                         out_k)
+        say(f"kernel select_walk on the {label} trees: {sel_ms[label][0]:.4f} ms device a "
+            f"launch ({sel_ms[label][1]:.4f} ms a call with the wrapper), "
+            f"{sel_ms[label][2]:.1f} ms plain; mean length "
+            f"{out_k[1].float().mean().item():.1f}")
+    ms_k, ev_k, ms_p, out_k = sel_ms["lp"]
     traces, lengths, leafs, _, packed7, sc7, end7i = out_k
     rows.append(("select_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:424",
                  launches, 0.0, ms_k, ev_k, ms_p,
                  bytes_select(lengths, D, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
-    say(f"kernel select_walk (clt): max diff 0; {ms_k:.4f} ms device a launch "
-        f"({ev_k:.4f} ms a call with the wrapper), {ms_p:.1f} ms plain; "
-        f"{launches['select_walk']} launches on the lp path; mean length "
-        f"{lengths.float().mean().item():.1f}")
+    say(f"kernel select_walk (clt, lp trees): max diff 0; {launches['select_walk']} launches "
+        f"on the lp path, {leaf_launches['select_walk']} on the leaf path")
 
     b = torch.arange(B, device="cuda")
     can = (~trees.end[b, leafs.long()]) & (trees.cbase[b, leafs.long()] == 0) & (
@@ -561,8 +624,13 @@ def main() -> int:
 
     net, ub, lb = model.net, model.ubound, model.lbound
     fwd_rows = {}
+    bits = trees.obs_bits.permute(0, 2, 1).reshape(-1, 20)
+    boards["obs rows"] = bits[bits.any(1)][:1792].contiguous()
+    if boards["obs rows"].shape[0] != 1792:
+        raise AssertionError("forward: fewer than 1792 boards in the lp trees")
     for k, x in boards.items():
-        v_k, var_k = fwd[k]
+        v_k, var_k = (fwd[k] if k in fwd else
+                      vv_forward.vv_forward_packed(net, ub, lb, x))
         v_p, var_p = vv_forward.vv_forward_packed_plain(net, ub, lb, x)
         imgs = unpack_obs(x)[:, None].float()
         v_n, var_n = model.apply_fn()(imgs)
@@ -573,19 +641,37 @@ def main() -> int:
                   close(f"vv_forward[{k}] variance vs VVNet", var_k, var_n, False, 1e-4,
                         1e-2))
         fk = lambda: vv_forward.vv_forward_packed(net, ub, lb, x)
-        ms_k = device_ms(fk, 20, "tmt_vv::vv_forward_kernel")
+        split = {}
+        ms_k = device_ms(fk, 20, ("tmt_vv::vv_conv_kernel", "tmt_vv::vv_fc_kernel"),
+                         parts=split)
         ev_k = cuda_ms(fk, 20)
         ms_p = cuda_ms(lambda: vv_forward.vv_forward_packed_plain(net, ub, lb, x), 5)
         ms_lib = device_ms_all(lambda: model.apply_fn()(imgs), 20)
         bound, bound_by = bound_vv(x.shape[0], net)
         fwd_rows[k] = (err, ms_k, ev_k, ms_p, bound, bound_by, ms_lib)
         say(f"kernel vv_forward on {x.shape[0]} {k}: max abs err {err:.3e} against "
-            f"plain and VVNet; {ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call "
+            f"plain and VVNet; {ms_k:.4f} ms device a call (conv ladder "
+            f"{split['tmt_vv::vv_conv_kernel']:.4f}, FC {split['tmt_vv::vv_fc_kernel']:.4f}; "
+            f"{ev_k:.4f} ms a call "
             f"with the wrapper), {ms_p:.3f} ms plain, VVNet forward (cuDNN/cuBLAS) "
             f"{ms_lib:.4f} ms device; bound {bound:.4f} ms ({bound_by})")
     err = max(r[0] for r in fwd_rows.values())
     rows.append(("vv_forward", "vv_forward.cu", "tetris_mcts_tpu/ops/vv_forward.py:117",
                  fwd_launches, err, *fwd_rows["lp children"][1:]))
+
+    # the micro-benchmark walk against its plain version, the script's shapes
+    bw_plain = bench_walk.bench_walk_plain(bw_idxs, *bw_stats)
+    for n, a, b in zip(("visit", "value", "var"), bw_out, bw_plain):
+        close(f"bench_walk {n}", a, b, True)
+    bwk = lambda: bench_walk.bench_walk(bw_idxs, *bw_stats)
+    ms_k = device_ms(bwk, 20, "tmt::bench_walk_kernel")
+    ev_k = cuda_ms(bwk, 20)
+    ms_p = cuda_ms(lambda: bench_walk.bench_walk_plain(bw_idxs, *bw_stats), 2)
+    bound = bytes_bench_walk(bench_walk.LEVELS, bw_B, bw_M) / HBM_BYTES_PER_S * 1e3
+    rows.append(("bench_walk", "tree_walk.cu", "scripts/microbench_pallas_walk.py:36",
+                 bw_launches, 0.0, ms_k, ev_k, ms_p, bound, "bytes", None))
+    say(f"kernel bench_walk: equal to plain; {ms_k:.4f} ms device a launch ({ev_k:.4f} ms "
+        f"a call with the wrapper), {ms_p:.3f} ms plain; bound {bound:.4f} ms (bytes)")
     say(f"phase kernels took {time.perf_counter() - t:.1f}s")
 
     kernels = [{

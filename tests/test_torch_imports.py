@@ -33,7 +33,7 @@ def test_kernel_modules_are_checked():
     """Every module that wraps a kernel, and the move program that drives
     them, is among the sources checked above."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
-    for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py",
+    for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py", "ops/bench_walk.py",
                 "search/mcts.py", "runtime/selfplay.py", "cli/play.py"):
         assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
 

@@ -127,14 +127,19 @@ def jax_move_program(ev, jcfg, sims, evaluator, **search_kw):
 
 
 def run_slice(move_j, params, ubound, move_t, planes, jcfg, tcfg, B_, moves,
-              tol, seed=5):
+              tol, seed=5, start=None, record=None):
     """`moves` moves of the JAX move program and of the port's on the same
     games and randomness: actions, env states, resets, node counts and the
     trees' integer arrays equal; statistics within `tol`; then one more
-    select walk on the final trees gives equal traces."""
-    jtrees, jenvs = JM.init_batch(seed, B_, JM.SearchConfig(tree=jcfg))
+    select walk on the final trees gives equal traces. `start` gives the
+    initial (jtrees, jenvs, ttrees, tenvs) in place of `init_batch(seed)`;
+    the port's MoveStats of every move are appended to `record`."""
+    if start is None:
+        jtrees, jenvs = JM.init_batch(seed, B_, JM.SearchConfig(tree=jcfg))
+        ttrees, tenvs = M.init_batch(seed, B_, M.SearchConfig(tree=tcfg), device="cpu")
+    else:
+        jtrees, jenvs, ttrees, tenvs = start
     replay = JM.init_replay(16)
-    ttrees, tenvs = M.init_batch(seed, B_, M.SearchConfig(tree=tcfg), device="cpu")
     assert_tree_equal(ttrees, jtrees)
 
     for mv in range(moves):
@@ -149,6 +154,8 @@ def run_slice(move_j, params, ubound, move_t, planes, jcfg, tcfg, B_, moves,
         np.testing.assert_allclose(tst.child_stats.numpy(), np.asarray(jst.child_stats),
                                    **tol)
         assert_tree_equal(ttrees, jtrees, stats_tol=tol, msg=f"move {mv}")
+        if record is not None:
+            record.append(tst)
 
     # traces: one more select walk on the final trees, same planes
     key = jax.random.PRNGKey(21)

@@ -1,26 +1,30 @@
-// The four MCTS walk kernels of the search, hand-written for Hopper
-// (sm_90a), with a plain C interface loaded through ctypes
-// (tetris_mcts_tpu_torch/ops/build.py, ops/tree_walk.py).
+// The MCTS walk kernels of the search, and the walk of the TPU
+// micro-benchmark, hand-written for Hopper (sm_90a), with a plain C
+// interface loaded through ctypes (tetris_mcts_tpu_torch/ops/build.py,
+// ops/tree_walk.py, ops/bench_walk.py).
 //
-// Each replaces a Pallas TPU kernel of tetris_mcts_tpu/ops/tree_walk.py:
-//   select_walk     <- _select_kernel (select_walk / select_batched_pallas)
-//   insert7_walk    <- _insert7_kernel (insert7_walk / insert_obs7_batched_pallas)
-//   lp_backup_walk  <- _lp_backup_kernel (lp_backup_walk / lp_backup_batched_pallas)
-//   backup_walk     <- _backup_kernel (backup_walk / backup_batched_pallas)
+// Each replaces a Pallas TPU kernel:
+//   select_walk     <- _select_kernel (tetris_mcts_tpu/ops/tree_walk.py)
+//   insert7_walk    <- _insert7_kernel (same file)
+//   lp_backup_walk  <- _lp_backup_kernel (same file)
+//   backup_walk     <- _backup_kernel (same file)
+//   bench_walk      <- walk_kernel (scripts/microbench_pallas_walk.py)
 //
 // What bounds them on this card: every walk is a chain of dependent loads
 // (a node's child base, its 7 children, their obs statistics, then the next
-// level), so a lane's time is a sum of device-memory latencies; the bytes
-// moved are a few hundred per level, far under the card's bandwidth. The
-// design is the simple, correct first one: one thread per tree, direct
-// indexed loads from device memory (the 34 MB of tree state at B=64 stays
-// L2-resident), strictly sequential levels within a lane (one trace can
-// hold the same obs twice, so Welford updates must not be reordered), and
-// the first index wins every exact tie. The Mosaic workarounds of the TPU
-// kernels (iota-mask gathers, i1 widening, VMEM block fitting, alias
-// toggles) have no counterpart here. Every loop is bounded: select by D
-// levels, insert by kInsertRounds rounds, backup by the trace length.
-// Faster forms (a warp per lane, shared-memory staging) are later work.
+// level), so a tree's time is a sum of memory latencies and of the serial
+// work between them; the bytes moved are a few hundred per level, far under
+// the card's bandwidth. Insert and the backups run one thread per tree,
+// with direct indexed loads from device memory (the 34 MB of tree state at
+// B=64 stays L2-resident). Select, which also steps the env at every
+// descent, runs a warp per tree with the 7 children in lanes and the env in
+// shared memory (see select_kernel). Levels stay strictly sequential within
+// a tree (one trace can hold the same obs twice, so Welford updates must not
+// be reordered), and the first index wins every exact tie. The Mosaic
+// workarounds of the TPU kernels (iota-mask gathers, i1 widening, VMEM block
+// fitting, alias toggles) have no counterpart here. Every loop is bounded:
+// select by D levels, insert by kInsertRounds rounds, backup by the trace
+// length.
 //
 // Float arithmetic is written in the order of the plain torch versions and
 // compiled with --fmad=false, so both round alike.
@@ -78,24 +82,54 @@ __device__ __forceinline__ void unique_kept(const int obs[kActions],
 }
 
 // ---------------------------------------------------------------------------
-// select: walk + inline env stepping + the leaf's 7 child steps
+// select: walk + inline env stepping + the leaf's 7 child steps.
+//
+// A warp per tree, kSelectWarps trees a block. Lanes 0-6 hold the 7
+// children of the current node: each loads its child's obs id, score, obs
+// statistics and gumbel, computes its own kept flag (against the others
+// through shuffles) and its own candidate; the max is a warp reduction with
+// the serial loop's NaN rule, and the lowest lane holding it wins
+// (__ballot_sync + __ffs), so the first index still wins every exact tie.
+// n_total is a shuffle sum: visit counts are small integers, so any order
+// gives the same float. Each child's lane also fetches that child's own
+// child base, so a level costs two dependent loads (children, then their
+// statistics), not three. Each tree's 44-word env and its 7 children's live
+// in shared memory; the whole warp steps the walk's env at each descent (a
+// board row a lane: packed_step_warp), lanes 0-6 step the 7 children at
+// once (packed_step, a child a lane) and all lanes write them out
+// coalesced. Levels stay strictly sequential, bounded by D. Every float
+// expression is the plain version's, per child, in its order.
 // ---------------------------------------------------------------------------
-__global__ void select_kernel(const int* __restrict__ cbase,
-                              const float* __restrict__ nstat,
-                              const float* __restrict__ visits,
-                              const float* __restrict__ values,
-                              const float* __restrict__ vars,
-                              const int* __restrict__ root,
-                              const uint32_t* __restrict__ env0,
-                              const float* __restrict__ gumbels,
-                              const float* __restrict__ rnd, int* traces,
-                              int* lengths, int* leafs, uint32_t* leaf_env,
-                              uint32_t* child_packed, int* child_score,
-                              int* child_end, int B, int N, int M, int D,
-                              int policy, int low, int app, int scoring,
-                              int randomizer) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+constexpr int kSelectWarps = 2;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct SelectSmem {
+  uint32_t w[kWords];                // the walk's env
+  uint32_t ch[kActions][kWords];     // the leaf's 7 children
+  uint32_t pk[kActions][kBoardH];    // their packed boards
+};
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+
+__global__ void __launch_bounds__(kSelectWarps * 32)
+select_kernel(const int* __restrict__ cbase, const float* __restrict__ nstat,
+              const float* __restrict__ visits,
+              const float* __restrict__ values,
+              const float* __restrict__ vars, const int* __restrict__ root,
+              const uint32_t* __restrict__ env0,
+              const float* __restrict__ gumbels,
+              const float* __restrict__ rnd, int* traces, int* lengths,
+              int* leafs, uint32_t* leaf_env, uint32_t* child_packed,
+              int* child_score, int* child_end, int B, int N, int M, int D,
+              int policy, int low, int app, int scoring, int randomizer) {
+  __shared__ SelectSmem smem[kSelectWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kSelectWarps + warp;
+  if (b >= B) return;  // the whole warp leaves together
+  SelectSmem& sm = smem[warp];
   const int* cb = cbase + (size_t)b * N;
   const float* score = nstat + (size_t)b * 2 * N;
   const float* obs_id = score + N;
@@ -103,106 +137,114 @@ __global__ void select_kernel(const int* __restrict__ cbase,
   const float* val = values + (size_t)b * M;
   const float* var_ = vars + (size_t)b * M;
   int* tr = traces + (size_t)b * D;
+  const bool child = lane < kActions;
+  const bool need_rnd = policy == kMc || policy == kRandom;
 
-  uint32_t w[kWords];
-  for (int i = 0; i < kWords; ++i) w[i] = env0[(size_t)b * kWords + i];
-  for (int d = 0; d < D; ++d) tr[d] = 0;
+  for (int i = lane; i < kWords; i += 32) sm.w[i] = env0[(size_t)b * kWords + i];
+  __syncwarp();
 
   int idx = root[b];
   float sc = score[idx];
-  int len = D;
+  int c = cb[idx];
+  int len = D, leaf = idx;
   for (int depth = 0; depth < D; ++depth) {
-    tr[depth] = idx;
-    int c = cb[idx];
-    bool valid = c != 0;
-    int obs[kActions];
-    float sck[kActions];
-    for (int a = 0; a < kActions; ++a) {
-      obs[a] = valid ? (int)obs_id[c + a] : -1;
-      sck[a] = valid ? score[c + a] : 0.0f;
+    if (lane == 0) tr[depth] = idx;
+    leaf = idx;
+    const size_t plane = ((size_t)b * D + depth) * kActions + lane;
+    const float g = child ? gumbels[plane] : 0.0f;
+    const float rn = child && need_rnd ? rnd[plane] : 0.0f;
+    const bool valid = c != 0;
+    const int obs = valid && child ? (int)obs_id[c + lane] : -1;
+    const float sck = valid && child ? score[c + lane] : 0.0f;
+    // each child's own child base, fetched with its obs id and score, so
+    // the next level needs no load of its own
+    const int c_child = valid && child ? cb[c + lane] : 0;
+    // unique children by obs: keep the earliest child of each obs group
+    // with the group's max score
+    bool kept = valid && child;
+#pragma unroll
+    for (int j = 0; j < kActions; ++j) {
+      const int oj = __shfl_sync(kFull, obs, j);
+      const float sj = __shfl_sync(kFull, sck, j);
+      const bool beats = sck > sj || (sck == sj && lane <= j);
+      if (oj == obs && !beats) kept = false;
     }
-    bool kept[kActions];
-    unique_kept(obs, sck, valid, kept);
-    bool any_kid = false;
-    for (int a = 0; a < kActions; ++a) any_kid |= kept[a];
-    if (!any_kid) {
+    if (__ballot_sync(kFull, kept) == 0u) {
       len = depth + 1;
       break;
     }
-    float vi[kActions], va[kActions], vr[kActions];
-    float n_total = 0.0f;
-    bool any_low = false;
-    for (int a = 0; a < kActions; ++a) {
-      vi[a] = va[a] = vr[a] = 0.0f;
-      if (kept[a]) {
-        vi[a] = vis[obs[a]];
-        va[a] = val[obs[a]];
-        vr[a] = var_[obs[a]];
-        n_total += vi[a];  // exact: visit counts are small integers
-        any_low |= vi[a] < (float)low;
-      }
+    float vi = 0.0f, va = 0.0f, vr = 0.0f;
+    if (kept) {
+      vi = vis[obs];
+      va = val[obs];
+      vr = var_[obs];
     }
-    const float* g = gumbels + ((size_t)b * D + depth) * kActions;
-    const float* rn = rnd + ((size_t)b * D + depth) * kActions;
-    float cand[kActions];
-    for (int a = 0; a < kActions; ++a) {
-      if (!kept[a]) {
-        cand[a] = -INFINITY;
-      } else if (any_low) {
-        cand[a] = vi[a] < (float)low ? g[a] : -INFINITY;
-      } else {
-        float q_base = va[a] + sck[a] - sc;
-        float var = fmaxf(vr[a], 0.0f);
-        float nv = fmaxf(vi[a], 1.0f);
-        float explore;
-        switch (policy) {
-          case kClt: explore = norm_quantile(n_total) * sqrtf(var / nv); break;
-          case kBayes:
-            explore = fminf(fmaxf(std_quantile2(nv - 1.0f, n_total), 0.0f), 1e3f)
-                      * sqrtf(var / fmaxf(nv - 1.0f, 1.0f));
-            break;
-          case kGauss: explore = norm_quantile(n_total) * sqrtf(var); break;
-          case kUcbv: explore = sqrtf(var * logf(fmaxf(n_total, 2.0f))); break;
-          case kMc: explore = rn[a] * sqrtf(var); break;
-          case kRandom: explore = rn[a] * 1e9f - q_base; break;
-          default: explore = 0.0f; break;
-        }
-        cand[a] = q_base + explore;
+    float n_total = vi;  // exact: visit counts are small integers
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      n_total += __shfl_xor_sync(kFull, n_total, off);
+    const bool is_low = kept && vi < (float)low;
+    const bool any_low = __any_sync(kFull, is_low);
+    float cand;
+    if (!kept) {
+      cand = -INFINITY;
+    } else if (any_low) {
+      cand = is_low ? g : -INFINITY;
+    } else {
+      float q_base = va + sck - sc;
+      float var = fmaxf(vr, 0.0f);
+      float nv = fmaxf(vi, 1.0f);
+      float explore;
+      switch (policy) {
+        case kClt: explore = norm_quantile(n_total) * sqrtf(var / nv); break;
+        case kBayes:
+          explore = fminf(fmaxf(std_quantile2(nv - 1.0f, n_total), 0.0f), 1e3f)
+                    * sqrtf(var / fmaxf(nv - 1.0f, 1.0f));
+          break;
+        case kGauss: explore = norm_quantile(n_total) * sqrtf(var); break;
+        case kUcbv: explore = sqrtf(var * logf(fmaxf(n_total, 2.0f))); break;
+        case kMc: explore = rn * sqrtf(var); break;
+        case kRandom: explore = rn * 1e9f - q_base; break;
+        default: explore = 0.0f; break;
       }
+      cand = q_base + explore;
     }
-    // first index of the max (a NaN max matches nothing, as in torch)
-    float cmax = cand[0];
-    for (int a = 1; a < kActions; ++a)
-      cmax = (isnan(cmax) || isnan(cand[a])) ? NAN : fmaxf(cmax, cand[a]);
-    int choice = kActions;
-    for (int a = 0; a < kActions; ++a)
-      if (cand[a] == cmax) {
-        choice = a;
-        break;
-      }
-    int nxt = choice < kActions ? c + choice : 0;
-    float sc_n = choice < kActions ? sck[choice] : 0.0f;
-    // descend steps the carried env, except on the last level of a
-    // depth-capped walk
-    if (depth < D - 1) packed_step(w, choice, app, scoring, randomizer);
-    idx = nxt;
-    sc = sc_n;
+    // the max, NaN if any candidate is NaN (then no lane matches it, as in
+    // torch); lanes 7-31 hold -inf
+    float cmax = cand;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      cmax = nan_max(cmax, __shfl_xor_sync(kFull, cmax, off));
+    const unsigned hit = __ballot_sync(kFull, child && cand == cmax);
+    const int choice = hit ? __ffs(hit) - 1 : kActions;
+    const float sc_pick = __shfl_sync(kFull, sck, choice & 31);
+    const int c_pick = __shfl_sync(kFull, c_child, choice & 31);
+    // descend steps the carried env (the whole warp, a row a lane), except
+    // on the last level of a depth-capped walk
+    if (depth < D - 1) packed_step_warp(sm.w, choice, app, scoring, randomizer, lane);
+    idx = choice < kActions ? c + choice : 0;
+    sc = choice < kActions ? sc_pick : 0.0f;
+    c = choice < kActions ? c_pick : cb[0];
   }
-  // the leaf is the last node recorded
-  lengths[b] = len;
-  leafs[b] = tr[len - 1];
-  for (int i = 0; i < kWords; ++i) leaf_env[(size_t)b * kWords + i] = w[i];
-  for (int a = 0; a < kActions; ++a) {
-    uint32_t ch[kWords];
-    for (int i = 0; i < kWords; ++i) ch[i] = w[i];
-    packed_step(ch, a, app, scoring, randomizer);
-    uint32_t pk[kBoardH];
-    packed_obs(ch, pk);
-    for (int r = 0; r < kBoardH; ++r)
-      child_packed[((size_t)b * kActions + a) * kBoardH + r] = pk[r];
-    child_score[b * kActions + a] = (int)ch[36];
-    child_end[b * kActions + a] = (int)ch[43];
+  // the leaf is the last node recorded; the rest of the trace is 0
+  for (int d = len + lane; d < D; d += 32) tr[d] = 0;
+  if (lane == 0) {
+    lengths[b] = len;
+    leafs[b] = leaf;
   }
+  for (int i = lane; i < kWords; i += 32) leaf_env[(size_t)b * kWords + i] = sm.w[i];
+  if (child) {
+    uint32_t* ch = sm.ch[lane];
+    for (int i = 0; i < kWords; ++i) ch[i] = sm.w[i];
+    packed_step(ch, lane, app, scoring, randomizer);
+    packed_obs(ch, sm.pk[lane]);
+    child_score[b * kActions + lane] = (int)ch[36];
+    child_end[b * kActions + lane] = (int)ch[43];
+  }
+  __syncwarp();
+  const uint32_t* pk = &sm.pk[0][0];
+  for (int i = lane; i < kActions * kBoardH; i += 32)
+    child_packed[(size_t)b * kActions * kBoardH + i] = pk[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -428,6 +470,47 @@ __global__ void backup_kernel(const int* __restrict__ traces,
                        vars + (size_t)b * M, v0[b], var0[b], gamma);
 }
 
+// ---------------------------------------------------------------------------
+// bench walk: the TPU micro-benchmark's 16-level Welford walk over (M, B)
+// statistics (lanes minor). A block owns 32 lanes: its 32 x 32 threads copy
+// the lanes' columns from the inputs to the outputs (each row of 32 lanes is
+// one coalesced 128-byte line), then warp 0 walks, one thread per lane,
+// reading and writing the statistic it indexes directly where the TPU
+// kernel used one-hot masks over all M rows.
+// ---------------------------------------------------------------------------
+constexpr int kBenchLanes = 32;
+constexpr int kBenchRows = 32;
+
+__global__ void __launch_bounds__(kBenchLanes * kBenchRows)
+bench_walk_kernel(const int* __restrict__ idxs,
+                  const float* __restrict__ visit_in,
+                  const float* __restrict__ value_in,
+                  const float* __restrict__ var_in, float* visit,
+                  float* value, float* var, int B, int M, int L) {
+  const int tx = threadIdx.x % kBenchLanes, ty = threadIdx.x / kBenchLanes;
+  const int b = blockIdx.x * kBenchLanes + tx;
+  if (b < B) {
+    for (int m = ty; m < M; m += kBenchRows) {
+      const size_t i = (size_t)m * B + b;
+      visit[i] = visit_in[i];
+      value[i] = value_in[i];
+      var[i] = var_in[i];
+    }
+  }
+  __syncthreads();
+  if (ty != 0 || b >= B) return;
+  float acc = 1.0f;
+  for (int t = 0; t < L; ++t) {
+    const size_t i = (size_t)idxs[t * B + b] * B + b;
+    const float vi = visit[i], va = value[i], vr = var[i];
+    const float x = acc - va;
+    visit[i] = vi + 1.0f;
+    value[i] = va + x / (vi + 1.0f);
+    var[i] = vr + x * x / (vi + 1.0f);
+    acc = acc * 0.999f;
+  }
+}
+
 inline int blocks(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace tmt
@@ -443,7 +526,8 @@ int select_walk(const void* cbase, const void* nstat, const void* visits,
                 void* child_packed, void* child_score, void* child_end, int B,
                 int N, int M, int D, int policy, int low, int app, int scoring,
                 int randomizer, void* stream) {
-  select_kernel<<<blocks(B), kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (B + kSelectWarps - 1) / kSelectWarps;
+  select_kernel<<<grid, kSelectWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int*)cbase, (const float*)nstat, (const float*)visits,
       (const float*)values, (const float*)vars, (const int*)root,
       (const uint32_t*)env0, (const float*)gumbels, (const float*)rnd,
@@ -485,6 +569,17 @@ int backup_walk(const void* traces, const void* lengths, const void* v0,
       (const int*)traces, (const int*)lengths, (const float*)v0,
       (const float*)var0, (const float*)nstat, (float*)visits,
       (float*)values, (float*)vars, B, N, M, D, gamma);
+  return (int)cudaGetLastError();
+}
+
+// idxs (L, B) int32 in [0, M); stats and outputs (M, B) float32.
+int bench_walk(const void* idxs, const void* visit_in, const void* value_in,
+               const void* var_in, void* visit, void* value, void* var, int B,
+               int M, int L, void* stream) {
+  const int grid = (B + kBenchLanes - 1) / kBenchLanes;
+  bench_walk_kernel<<<grid, kBenchLanes * kBenchRows, 0, (cudaStream_t)stream>>>(
+      (const int*)idxs, (const float*)visit_in, (const float*)value_in,
+      (const float*)var_in, (float*)visit, (float*)value, (float*)var, B, M, L);
   return (int)cudaGetLastError();
 }
 

@@ -6,14 +6,16 @@ loaded with `ctypes`:
 
 | library | source | kernels |
 | --- | --- | --- |
-| `tree_walk` | `csrc/tree_walk.cu` (+ `env_packed.cuh`) | select, insert7, LP backup, backup |
-| `vv_forward` | `csrc/vv_forward.cu` | the fused packed-board VV forward |
+| `tree_walk` | `csrc/tree_walk.cu` (+ `env_packed.cuh`) | select, insert7, LP backup, backup, the micro-benchmark walk |
+| `vv_forward` | `csrc/vv_forward.cu` | the fused packed-board VV forward (conv ladder, FC) |
 
 A library goes to `tetris_mcts_tpu_torch/build/` (listed in .gitignore)
 under a name that carries a hash of its sources and flags, so an edited
 source is rebuilt and concurrent processes never load a half-written file.
 `build_all()` starts every library's `nvcc` at once. Nothing is built or
-loaded at import time.
+loaded at import time. `launch()` calls a library's C entry on the stream
+of its tensors' device, with that device current, whatever device the
+caller has current.
 
 The walk kernels are built with `--fmad=false`: every float multiply and
 add stays a separate IEEE operation, as PyTorch's elementwise kernels
@@ -33,6 +35,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -60,10 +64,11 @@ LIBRARIES = {
             "insert7_walk": [_P] * 10 + [_I] * 3 + [_P],
             "lp_backup_walk": [_P] * 11 + [_I] * 4 + [_F, _P],
             "backup_walk": [_P] * 8 + [_I] * 4 + [_F, _P],
+            "bench_walk": [_P] * 7 + [_I] * 3 + [_P],
         }),
     "vv_forward": Library(
         "vv_forward.cu", (), _BASE_FLAGS, {
-            "vv_forward": [_P] * 14 + [_I, _P],
+            "vv_forward": [_P] * 15 + [_I, _P],
         }),
 }
 
@@ -142,3 +147,26 @@ def lib(name: str = "tree_walk"):
             fn.restype = ctypes.c_int
         _libs[name] = handle
     return _libs[name]
+
+
+def tensors_device(name: str, tensors) -> torch.device:
+    """The one device all `tensors` lie on; raises if they span several."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: inputs lie on several devices "
+                         f"{sorted(map(str, devs))}")
+    return devs.pop()
+
+
+def launch(name: str, fn_name: str, *args):
+    """Call the C entry `fn_name` of library `name` with `args` (tensors as
+    their data pointers, ints and floats as they are) and the stream of the
+    tensors' device, with that device current. Raises if the tensors lie on
+    several devices or the launch failed."""
+    dev = tensors_device(fn_name, [a for a in args if isinstance(a, torch.Tensor)])
+    fn = getattr(lib(name), fn_name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")

@@ -18,14 +18,18 @@ Any other device raises. The kernels update the tree in place.
 
 What bounds them on the H100, and what the design does about it: each is a
 walk of dependent loads (child base -> 7 children -> their statistics, one
-level after another), so a lane's time is a chain of device-memory
-latencies, and the bytes a walk touches (about 0.2 KB a level) are far
-below what the card's 3.35 TB/s could move. The first design is one thread
-per tree, with direct indexed loads and strictly sequential levels; the
-~0.5 MB of tree state per lane stays in device memory and the hot lines
-stay in L2 (34 MB at B=64, within the 50 MB L2). Every device loop is
-bounded: select by D levels, insert by PROBE_ROUNDS rounds, backup by the
-trace length (<= D).
+level after another), so a tree's time is a chain of memory latencies and
+of the serial work between them, and the bytes a walk touches (about 0.2 KB
+a level) are far below what the card's 3.35 TB/s could move. Insert and
+the backups run one thread per tree. Select, which also steps the env at
+every descent and the leaf's 7 children, runs a warp per tree: the 7
+children in lanes, the env in shared memory, the descent step spread over
+the board's rows (see `csrc/tree_walk.cu`). Levels stay strictly
+sequential; the ~0.5 MB of tree state per lane stays in device memory and
+the hot lines in L2 (34 MB at B=64, within the 50 MB L2). Every device loop
+is bounded: select by D levels, insert by PROBE_ROUNDS rounds, backup by
+the trace length (<= D). Each kernel launches on the stream of its tensors'
+device, with that device current (`build.launch`).
 """
 
 from __future__ import annotations
@@ -69,12 +73,7 @@ def _check(name, x, dtype, shape):
 
 
 def _launch(fn_name, *args):
-    stream = torch.cuda.current_stream().cuda_stream
-    fn = getattr(build.lib(), fn_name)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*ptrs, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
+    build.launch("tree_walk", fn_name, *args)
     LAUNCHES[fn_name] += 1
 
 

@@ -20,7 +20,10 @@ run `VVNet` itself.
 
 What bounds the kernel on the H100: operations, 1,901,568 multiply-adds a
 board in float32 (3.8 MFLOP), against 80 bytes of board in and 8 bytes
-out; see the source for its design.
+out; see the source for its design. A call makes two launches, the conv
+ladder and the FC kernel, through one C entry, and counts one: the conv
+ladder hands the FC kernel each board's 1792 features through an (n, 1792)
+float32 scratch tensor that the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -108,19 +111,23 @@ def vv_forward_packed(net, ubound, lbound, packed):
     want = [(FILTERS, 1, 3, 3), (FILTERS,), (FILTERS, FILTERS, 3, 3), (FILTERS,),
             (FILTERS, FILTERS, 3, 3), (FILTERS,), (N_FC, FILTERS * 14 * 4), (N_FC,),
             (2, N_FC), (2,)]
-    bounds = [b.to(device=packed.device, dtype=torch.float32).contiguous()
-              for b in (ubound, lbound)]
+    dev = build.tensors_device("vv_forward", [packed, *ws])
+    bounds = [b.to(device=dev, dtype=torch.float32).contiguous() for b in (ubound, lbound)]
     for x, shape in zip(ws + bounds, want + [(2,), (2,)]):
-        if tuple(x.shape) != shape or x.device != packed.device:
-            raise ValueError(f"vv_forward kernel: want a {shape} weight on "
-                             f"{packed.device}, got {tuple(x.shape)} on {x.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"vv_forward kernel: want a {shape} weight, got "
+                             f"{tuple(x.shape)}")
+    return _forward_kernel(packed, ws, bounds)
+
+
+def _forward_kernel(packed, ws, bounds):
+    """Launch the forward on checked inputs: the conv ladder writes an
+    (n, 1792) scratch, the FC kernel reads it and writes (n, 2)."""
+    n = packed.shape[0]
     out = torch.empty(n, 2, dtype=torch.float32, device=packed.device)
     if n == 0:
         return out[:, 0], out[:, 1]
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (packed, *ws, *bounds, out)]
-    err = build.lib("vv_forward").vv_forward(*ptrs, n, stream)
-    if err != 0:
-        raise RuntimeError(f"vv_forward: CUDA launch failed with error {err}")
+    feat = torch.empty(n, FILTERS * 14 * 4, dtype=torch.float32, device=packed.device)
+    build.launch("vv_forward", "vv_forward", packed, *ws, *bounds, feat, out, n)
     LAUNCHES["vv_forward"] += 1
     return out[:, 0], out[:, 1]
