@@ -35,7 +35,11 @@ of the JAX package. Phases, each printing its elapsed seconds:
    version (integers exact; values/vars within rtol 1e-6 / atol 1e-5; the
    select kernel under every selection rule it accepts, on the lp and the
    leaf trees; the forward within rtol 1e-4, atol 1e-3 / 1e-2 against its
-   plain version and `VVNet`, also on 1792 boards; the bench walk exact),
+   plain version and `VVNet`, also on 1792 boards; the bench walk exact;
+   insert and the LP backup also on the edge inputs of
+   tests/torch_walk_cases.py: D=96 traces with repeated obs within and
+   across the LP kernel's chunks of 32 levels, a 16-slot table with
+   contending keys, a wrapping probe and an id pool that runs out),
    with the kernel's device time a launch (torch.profiler; for the forward
    both of its kernels), the time of a call through its wrapper and of its
    plain version (CUDA events), a bound, and for the forward the device
@@ -361,7 +365,8 @@ def report_profile(torch, driver, wall, moves, label):
     say(f"phase profile ({label}): device kernel time {busy_ms / 2:.2f} ms per move "
         f"against {per_move_ms:.2f} ms wall per move unprofiled (device busy share "
         f"{busy_ms / 2 / per_move_ms:.3f}); top device kernels:")
-    for name, ms, n in prof_rows[:12]:
+    # the twelve largest, and the port's own kernels wherever they rank
+    for name, ms, n in prof_rows[:12] + [r for r in prof_rows[12:] if r[0].startswith("tmt")]:
         say(f"  {ms / 2:9.3f} ms/move  {n // 2:6d} launches/move  {name[:90]}")
     say(f"phase profile ({label}) took {time.perf_counter() - t:.1f}s")
 
@@ -397,6 +402,10 @@ def main() -> int:
         build.lib(name)
         say(f"phase build: {name}: nvcc {build.build_seconds[name]:.1f}s; ptxas: "
             f"{' | '.join(ptxas_summary(build.ptxas_log.get(name, '')))}")
+    walk_ptxas = ptxas_summary(build.ptxas_log.get("tree_walk", ""))
+    say("ptxas -v of the warp-per-tree insert and LP backup: " + (" | ".join(
+        x for x in walk_ptxas if x.startswith(("insert7_kernel", "lp_backup_kernel")))
+        or "none: the library was built before this run"))
     say(f"phase build took {time.perf_counter() - t:.1f}s (nvcc calls in parallel, "
         f"with load)")
 
@@ -593,6 +602,11 @@ def main() -> int:
         f"wrapper), {ms_p:.1f} ms plain; "
         f"{launches['lp_backup_walk']} launches on the lp path")
 
+    edge_err = walk_edges(torch, tree_walk, T)
+    say(f"kernel insert7_walk and lp_backup_walk on the edge inputs (B=67): obs ids, "
+        f"tables, obs rows and visits equal to plain; values/vars max abs err "
+        f"{edge_err:.3e}")
+
     # the backup walk on the leaf path's grown trees, from the leaf
     # evaluator's (v0, var0): leaf score + net value, net variance
     l_traces, l_lengths, l_leafs, l_env = out_leaf[:4]
@@ -688,6 +702,44 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
+
+
+def walk_edges(torch, tree_walk, T, B=67):
+    """Insert and the LP backup against their plain versions on the card, on
+    the edge inputs of tests/torch_walk_cases.py (B=67: every trace length
+    and a partly full last block). Returns the LP's max abs err of
+    values/vars; raises on any difference."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_walk_cases as C
+
+    case = C.lp_case(0, B, 96)
+    if C.repeats(case) != (True, True, True):
+        raise AssertionError("walk edges: the LP case lacks a repeated obs")
+    cfg = T.TreeConfig(max_nodes=C.LP_N, max_obs=C.LP_M, table_size=16, max_depth=96)
+    tk, tp = C.lp_tree(case, "cuda"), C.lp_tree(case, "cuda")
+    args = C.lp_args(case, "cuda")
+    tree_walk.lp_backup(tk, *args, cfg)
+    tree_walk.lp_backup_plain(tp, *args, cfg)
+    close("edges lp visits", tk.visits, tp.visits, True)
+    err = max(close("edges lp values", tk.values, tp.values, False),
+              close("edges lp vars", tk.vars_, tp.vars_, False))
+    packed7, end7, ok = C.insert_case(0, B)
+    tk, tp = C.insert_trees(0, B, "cuda"), C.insert_trees(0, B, "cuda")
+    ran_out = False
+    for r in range(C.INSERT_ROUNDS):
+        a = [torch.as_tensor(x[r], device="cuda") for x in (packed7, end7, ok)]
+        n_before = tk.n_obs.clone()
+        got = tree_walk.insert_obs7(tk, *a, C.INSERT_CFG)
+        close(f"edges insert obs7 (call {r})", got,
+              T.insert_obs7_batched(tp, *a, C.INSERT_CFG), True)
+        for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
+            close(f"edges insert {f} (call {r})", getattr(tk, f), getattr(tp, f), True)
+        ran_out |= C.ran_out(n_before, tk.n_obs, got, a[2])
+    if not (ran_out and C.wrapped(tk)):
+        raise AssertionError("walk edges: no probe wrapped or the pool never ran out")
+    return err
 
 
 def profile_moves(torch, driver, n):

@@ -9,11 +9,17 @@ Integers must match exactly; values and vars within rtol 1e-6 / atol 1e-5
 (tests/test_search.py's backup tolerance); the fused VV forward within
 rtol 1e-4, atol 1e-3 (value) / 1e-2 (variance) (tests/test_ops.py's).
 
-The select kernel runs a warp per tree, two trees a block: it is checked at
-B = 1, 5, 64 and 67 (one tree, a partial block, full blocks, and the odd
-batch of more than one block) and on depth-capped walks. The forward picks
-its boards per block from n and tiles the FC over 16 boards: it is checked
-from 1 to 1792 boards, across tile and block edges.
+The select, insert and LP-backup kernels run a warp per tree, two trees a
+block: each is checked at B = 1, 5, 64 and 67 (one tree, a partial block,
+full blocks, and the odd batch of more than one block), select also on
+depth-capped walks. Insert and the LP backup are also checked on the edge
+inputs of tests/torch_walk_cases.py (D=96 traces that hold one obs twice
+within and across chunks of 32 levels, leaf children whose obs lie on the
+trace, leaves without children, lanes not expanded, length 1; a 16-slot
+table with contending keys, duplicates, a wrapping probe and an id pool
+that runs out), integers and obs rows compared with torch.equal. The
+forward picks its boards per block from n and tiles the FC over 16 boards:
+it is checked from 1 to 1792 boards, across tile and block edges.
 """
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 from tetris_mcts_tpu_torch.ops import tree_walk as W
 from tetris_mcts_tpu_torch.search import mcts as M
 from tetris_mcts_tpu_torch.search import tree as T
+import torch_walk_cases as C
 
 pytestmark = pytest.mark.cuda
 
@@ -117,28 +124,36 @@ def test_bench_walk_kernel_matches_plain():
         assert torch.equal(g, w)
 
 
-def test_insert_kernel_matches_plain(grown):
-    grown = lanes(grown, B)
+@pytest.mark.parametrize("n", [1, 5, B, 64, 67])
+def test_insert_kernel_matches_plain(grown, n):
+    """On the grown trees' first n lanes (a warp per tree, two a block)."""
+    grown = lanes(grown, n)
     rng = np.random.RandomState(0)
-    packed7 = torch.as_tensor(rng.randint(0, 4, (B, 7, 20)).astype(np.int32), device="cuda")
-    end7 = torch.as_tensor(rng.rand(B, 7) < 0.2, device="cuda")
-    ok = torch.as_tensor(rng.rand(B) < 0.8, device="cuda")
+    packed7 = torch.as_tensor(rng.randint(0, 4, (n, 7, 20)).astype(np.int32), device="cuda")
+    end7 = torch.as_tensor(rng.rand(n, 7) < 0.2, device="cuda")
+    ok = torch.as_tensor(rng.rand(n) < 0.8, device="cuda")
     tk, tp = grown.clone(), grown.clone()
+    W.reset_launches()
     assert torch.equal(W.insert_obs7(tk, packed7, end7, ok, CFG),
                        T.insert_obs7_batched(tp, packed7, end7, ok, CFG))
+    assert W.LAUNCHES["insert7_walk"] == 1
     for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
         assert torch.equal(getattr(tk, f), getattr(tp, f)), f
 
 
-def test_lp_backup_kernel_matches_plain(grown):
-    grown = lanes(grown, B)
-    traces, lengths, *_ = W.select_walk(grown, *M.TorchPlanes(2, "cuda")(B, CFG.max_depth),
+@pytest.mark.parametrize("n", [1, 5, B, 64, 67])
+def test_lp_backup_kernel_matches_plain(grown, n):
+    """On the grown trees' first n lanes (a warp per tree, two a block)."""
+    grown = lanes(grown, n)
+    traces, lengths, *_ = W.select_walk(grown, *M.TorchPlanes(2, "cuda")(n, CFG.max_depth),
                                         CFG)
-    v = torch.linspace(1.0, 7.0, B * 7, device="cuda").reshape(B, 7)
-    var = torch.full((B, 7), 3.0, device="cuda")
-    can = torch.arange(B, device="cuda") % 3 != 0
+    v = torch.linspace(1.0, 7.0, n * 7, device="cuda").reshape(n, 7)
+    var = torch.full((n, 7), 3.0, device="cuda")
+    can = torch.arange(n, device="cuda") % 3 != 0
     tk, tp = grown.clone(), grown.clone()
+    W.reset_launches()
     W.lp_backup(tk, traces, lengths, v, var, can, CFG)
+    assert W.LAUNCHES["lp_backup_walk"] == 1
     W.lp_backup_plain(tp, traces, lengths, v, var, can, CFG)
     assert torch.equal(tk.visits, tp.visits)
     torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
@@ -160,6 +175,54 @@ def test_backup_kernel_matches_plain(grown):
     assert not torch.equal(tk.visits, grown.visits)
     torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
     torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the walk kernels run only on the card")
+
+
+@pytest.mark.parametrize("n", [1, 5, 64, 67])
+def test_lp_backup_kernel_edges(card, n):
+    """D=96 traces from 1 to 96 levels: the kernel's chunks of 32 levels,
+    obs repeated within and across chunks, seeded children on the trace."""
+    case = C.lp_case(n, n, 96)
+    if n >= 64:
+        assert C.repeats(case) == (True, True, True)
+    cfg = T.TreeConfig(max_nodes=C.LP_N, max_obs=C.LP_M, table_size=16, max_depth=96)
+    tk, tp = C.lp_tree(case, "cuda"), C.lp_tree(case, "cuda")
+    args = C.lp_args(case, "cuda")
+    W.reset_launches()
+    W.lp_backup(tk, *args, cfg)
+    assert W.LAUNCHES["lp_backup_walk"] == 1
+    W.lp_backup_plain(tp, *args, cfg)
+    assert torch.equal(tk.visits, tp.visits)
+    torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 5, 64, 67])
+def test_insert_kernel_edges(card, n):
+    """A sequence of inserts into a 16-slot table with a 12-id pool:
+    contention for one slot, duplicate keys, a probe wrapping to slot 0,
+    the pool running out during a call."""
+    packed7, end7, ok = C.insert_case(n, n)
+    tk, tp = C.insert_trees(n, n, "cuda"), C.insert_trees(n, n, "cuda")
+    ran_out = False
+    for r in range(C.INSERT_ROUNDS):
+        args = [torch.as_tensor(x[r], device="cuda") for x in (packed7, end7, ok)]
+        n_before = tk.n_obs.clone()
+        W.reset_launches()
+        got = W.insert_obs7(tk, *args, C.INSERT_CFG)
+        assert W.LAUNCHES["insert7_walk"] == 1
+        assert torch.equal(got, T.insert_obs7_batched(tp, *args, C.INSERT_CFG)), r
+        for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
+            assert torch.equal(getattr(tk, f), getattr(tp, f)), (r, f)
+        ran_out |= C.ran_out(n_before, tk.n_obs, got, args[2])
+    assert C.wrapped(tk)
+    if n >= 5:
+        assert ran_out
 
 
 @pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 448, 1792])

@@ -12,19 +12,23 @@
 //
 // What bounds them on this card: every walk is a chain of dependent loads
 // (a node's child base, its 7 children, their obs statistics, then the next
-// level), so a tree's time is a sum of memory latencies and of the serial
-// work between them; the bytes moved are a few hundred per level, far under
-// the card's bandwidth. Insert and the backups run one thread per tree,
-// with direct indexed loads from device memory (the 34 MB of tree state at
-// B=64 stays L2-resident). Select, which also steps the env at every
-// descent, runs a warp per tree with the 7 children in lanes and the env in
-// shared memory (see select_kernel). Levels stay strictly sequential within
-// a tree (one trace can hold the same obs twice, so Welford updates must not
-// be reordered), and the first index wins every exact tie. The Mosaic
-// workarounds of the TPU kernels (iota-mask gathers, i1 widening, VMEM block
-// fitting, alias toggles) have no counterpart here. Every loop is bounded:
-// select by D levels, insert by kInsertRounds rounds, backup by the trace
-// length.
+// level; a probe slot, then the next), so a tree's time is a sum of memory
+// latencies and of the serial work between them; the bytes moved are a few
+// hundred per level, far under the card's bandwidth (the 34 MB of tree
+// state at B=64 stays L2-resident). So the designs cut the number of
+// dependent round trips, with a warp per tree and the 7 children in lanes:
+// select loads a level's children, their statistics and their child bases
+// in two round trips and steps the env in shared memory; insert resolves
+// all 7 keys of a probe round in one round trip, with the claims settled in
+// registers; the LP backup loads up to 32 levels of its trace at once (a
+// level a lane) and walks them by shuffles, so its round trips are counted
+// per chunk of 32 levels, not per level. backup_kernel still runs a thread
+// per tree. Levels stay strictly sequential within a tree (one trace can
+// hold the same obs twice, so Welford updates must not be reordered), and
+// the first index wins every exact tie. The Mosaic workarounds of the TPU
+// kernels (iota-mask gathers, i1 widening, VMEM block fitting, alias
+// toggles) have no counterpart here. Every loop is bounded: select by D
+// levels, insert by kInsertRounds rounds, the backups by the trace length.
 //
 // Float arithmetic is written in the order of the plain torch versions and
 // compiled with --fmad=false, so both round alike.
@@ -38,7 +42,7 @@ namespace tmt {
 
 constexpr int kActions = 7;
 constexpr int kInsertRounds = 128;  // the TPU kernel's _INSERT_ROUNDS
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;  // backup_kernel: a thread per tree
 
 // Indexed by the position of the policy's name in ops/tree_walk.py POLICIES:
 // the two orders must match (tests/test_torch_search.py checks it).
@@ -66,20 +70,7 @@ __device__ __forceinline__ float std_quantile2(float nu, float t) {
   return 1.0f / t_inv;
 }
 
-// Unique children by obs: keep the earliest child of each obs group with
-// the group's max score.
-__device__ __forceinline__ void unique_kept(const int obs[kActions],
-                                            const float sc[kActions],
-                                            bool valid, bool kept[kActions]) {
-  for (int i = 0; i < kActions; ++i) {
-    bool k = valid;
-    for (int j = 0; j < kActions; ++j) {
-      bool beats = sc[i] > sc[j] || (sc[i] == sc[j] && i <= j);
-      if (obs[i] == obs[j] && !beats) k = false;
-    }
-    kept[i] = k;
-  }
-}
+constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // select: walk + inline env stepping + the leaf's 7 child steps.
@@ -101,7 +92,6 @@ __device__ __forceinline__ void unique_kept(const int obs[kActions],
 // expression is the plain version's, per child, in its order.
 // ---------------------------------------------------------------------------
 constexpr int kSelectWarps = 2;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct SelectSmem {
   uint32_t w[kWords];                // the walk's env
@@ -249,8 +239,30 @@ select_kernel(const int* __restrict__ cbase, const float* __restrict__ nstat,
 
 // ---------------------------------------------------------------------------
 // insert: hash the 7 child boards, find-or-create their obs ids in the
-// lane's open-addressing table, write the fresh ids' obs rows
+// tree's open-addressing table, write the fresh ids' obs rows.
+//
+// What bounds it is a chain of dependent loads: the boards, then one probe
+// round after another. A warp per tree, kWalkWarps trees a block; lane a
+// (0-6) owns action a, so a round costs one round trip. The warp copies the 7 x 20 board words into shared memory in one
+// coalesced round trip, with ok and n_obs; lane a hashes its row from
+// there (a wrapping u32 sum, so any order gives the same key). The group
+// representative is the lowest lane of its __match_any_sync group on the
+// 64-bit key. Each probe round is one round trip: every unplaced lane loads
+// tobs/th1/th2 at its slot at once. When distinct keys contend for one slot
+// the LAST contending action's key survives (the plain version writes
+// action by action, as the TPU kernel's unrolled writes do): that is the
+// highest lane of the __match_any_sync group of attempting lanes on the
+// slot, found in registers with no read-back of th1/th2.
+// Ids are n_obs + the winners below the lane (a popcount of the ballot),
+// kept only while < M; the winner writes the key (always) and the id (when
+// kept). Losers see the winner's key on the next round's load. Stores of
+// one round reach the next round's loads through __syncwarp. The fresh
+// representatives' obs_bits rows (140 words at most) are written by the
+// whole warp from shared memory.
 // ---------------------------------------------------------------------------
+constexpr int kWalkWarps = 2;           // trees a block, insert and LP backup
+constexpr unsigned kActionLanes = (1u << kActions) - 1;
+
 __constant__ uint32_t kHK1[20] = {
     0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du, 0x27D4EB2Fu, 0x165667B1u,
     0xD3A2646Du, 0xFD7046C5u, 0xB55A4F09u, 0x94D049BBu, 0xBF58476Du,
@@ -270,108 +282,109 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
-__global__ void insert7_kernel(const uint32_t* __restrict__ packed7,
-                               const bool* __restrict__ end7,
-                               const bool* __restrict__ ok,
-                               uint32_t* tbl_h1, uint32_t* tbl_h2,
-                               int* tbl_obs, int* n_obs, bool* obs_end,
-                               uint32_t* obs_bits, int* obs7, int B, int T,
-                               int M) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+struct InsertSmem {
+  uint32_t pk[kActions * kBoardH];  // the 7 boards, action-major
+  int fresh[kActions];              // the fresh id of each action, or -1
+};
+
+__global__ void __launch_bounds__(kWalkWarps * 32)
+insert7_kernel(const uint32_t* __restrict__ packed7,
+               const bool* __restrict__ end7, const bool* __restrict__ ok,
+               uint32_t* tbl_h1, uint32_t* tbl_h2, int* tbl_obs, int* n_obs,
+               bool* obs_end, uint32_t* obs_bits, int* obs7, int B, int T,
+               int M) {
+  __shared__ InsertSmem smem[kWalkWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWalkWarps + warp;
+  if (b >= B) return;  // the whole warp leaves together
+  InsertSmem& sm = smem[warp];
   const uint32_t* pk = packed7 + (size_t)b * kActions * kBoardH;
   uint32_t* th1 = tbl_h1 + (size_t)b * T;
   uint32_t* th2 = tbl_h2 + (size_t)b * T;
   int* tobs = tbl_obs + (size_t)b * T;
   const uint32_t mask = (uint32_t)(T - 1);
 
-  uint32_t h1[kActions], h2[kActions];
-  for (int a = 0; a < kActions; ++a) {
-    uint32_t s1 = 0u, s2 = 0u;
-    for (int r = 0; r < kBoardH; ++r) {
-      s1 += pk[a * kBoardH + r] * kHK1[r];
-      s2 += pk[a * kBoardH + r] * kHK2[r];
-    }
-    h1[a] = mix32(s1);
-    h2[a] = mix32(s2);
-  }
-  bool rep[kActions];  // lowest action of each same-key group
-  for (int a = 0; a < kActions; ++a) {
-    rep[a] = true;
-    for (int j = 0; j < a; ++j)
-      if (h1[j] == h1[a] && h2[j] == h2[a]) rep[a] = false;
-  }
-  int slot[kActions], obs[kActions];
-  bool placed[kActions];
-  for (int a = 0; a < kActions; ++a) {
-    slot[a] = (int)(h1[a] & mask);
-    placed[a] = !ok[b];
-    obs[a] = 0;
-  }
+  for (int i = lane; i < kActions * kBoardH; i += 32) sm.pk[i] = pk[i];
+  const bool okb = ok[b];
   const int nobs0 = n_obs[b];
-  int nobs = nobs0;
-  for (int round = 0; round < kInsertRounds; ++round) {
-    bool all = true;
-    for (int a = 0; a < kActions; ++a) all &= placed[a];
-    if (all) break;
-    bool occ[kActions], match[kActions], attempt[kActions], won[kActions];
-    for (int a = 0; a < kActions; ++a) {
-      int tid = tobs[slot[a]];
-      occ[a] = tid != 0;
-      match[a] = occ[a] && th1[slot[a]] == h1[a] && th2[slot[a]] == h2[a];
-      if (!placed[a] && match[a]) {
-        obs[a] = tid;
-        placed[a] = true;
-      }
+  __syncwarp();
+  if (lane < kActions) {
+    uint32_t s1 = 0u, s2 = 0u;
+#pragma unroll
+    for (int r = 0; r < kBoardH; ++r) {
+      const uint32_t w = sm.pk[lane * kBoardH + r];
+      s1 += w * kHK1[r];
+      s2 += w * kHK2[r];
     }
-    const bool full = nobs >= M;
-    for (int a = 0; a < kActions; ++a) {
-      bool at_empty = !placed[a] && !occ[a];
-      if (at_empty && full) placed[a] = true;  // pool exhausted: obs 0
-      attempt[a] = at_empty && !full && rep[a];
-    }
-    // claim: in action order, so when distinct keys contend for one slot
-    // the LAST contending action's key survives, as in the TPU kernel
-    for (int a = 0; a < kActions; ++a)
-      if (attempt[a]) {
-        th1[slot[a]] = h1[a];
-        th2[slot[a]] = h2[a];
+    const uint32_t h1 = mix32(s1), h2 = mix32(s2);
+    const unsigned same =
+        __match_any_sync(kActionLanes, ((unsigned long long)h2 << 32) | h1);
+    const bool rep = __ffs(same) - 1 == lane;  // lowest action of its key
+    uint32_t slot = h1 & mask;
+    bool placed = !okb;
+    int obs = 0, nobs = nobs0;
+    for (int round = 0; round < kInsertRounds; ++round) {
+      if (__ballot_sync(kActionLanes, !placed) == 0u) break;
+      int tid = 0;
+      uint32_t k1 = 0u, k2 = 0u;
+      if (!placed) {
+        tid = tobs[slot];
+        k1 = th1[slot];
+        k2 = th2[slot];
       }
-    int rank = 0;
-    for (int a = 0; a < kActions; ++a) {
-      won[a] = attempt[a] && th1[slot[a]] == h1[a] && th2[slot[a]] == h2[a];
-      int id = nobs + rank;
-      rank += won[a] ? 1 : 0;
-      won[a] = won[a] && id < M;
-      if (won[a]) obs[a] = id;
-    }
-    for (int a = 0; a < kActions; ++a)
-      if (won[a]) {
-        tobs[slot[a]] = obs[a];
-        placed[a] = true;
-        ++nobs;
+      const bool occ = tid != 0;
+      const bool match = occ && k1 == h1 && k2 == h2;
+      if (!placed && match) {
+        obs = tid;
+        placed = true;
       }
-    for (int a = 0; a < kActions; ++a)
-      if (!placed[a] && occ[a] && !match[a])
-        slot[a] = (int)(((uint32_t)slot[a] + 1u) & mask);
+      const bool full = nobs >= M;
+      const bool at_empty = !placed && !occ;
+      if (at_empty && full) placed = true;  // pool exhausted: obs 0
+      const bool attempt = at_empty && !full && rep;
+      // the highest attempting lane on a slot is the last contending action,
+      // whose key the serial claim in action order leaves in the table
+      const unsigned on_slot =
+          __match_any_sync(kActionLanes, attempt ? (int)slot : -1 - lane);
+      const bool claims = attempt && lane == 31 - __clz(on_slot);
+      const unsigned claimed = __ballot_sync(kActionLanes, claims);
+      const int id = nobs + __popc(claimed & ((1u << lane) - 1u));
+      const bool won = claims && id < M;
+      if (claims) {
+        th1[slot] = h1;
+        th2[slot] = h2;
+      }
+      if (won) {
+        tobs[slot] = id;
+        obs = id;
+        placed = true;
+      }
+      nobs += __popc(__ballot_sync(kActionLanes, won));
+      if (!placed && occ && !match) slot = (slot + 1u) & mask;
+      __syncwarp(kActionLanes);  // this round's stores before the next loads
+    }
+    if (lane == 0) n_obs[b] = nobs;
+    obs7[b * kActions + lane] = obs;
+    const bool fresh = okb && obs >= nobs0 && rep;
+    if (fresh) obs_end[(size_t)b * M + obs] = end7[b * kActions + lane];
+    sm.fresh[lane] = fresh ? obs : -1;
   }
-  n_obs[b] = nobs;
-  for (int a = 0; a < kActions; ++a) {
-    obs7[b * kActions + a] = obs[a];
-    if (ok[b] && obs[a] >= nobs0 && rep[a]) {
-      obs_end[(size_t)b * M + obs[a]] = end7[b * kActions + a];
-      for (int r = 0; r < kBoardH; ++r)
-        obs_bits[((size_t)b * kBoardH + r) * M + obs[a]] = pk[a * kBoardH + r];
-    }
+  __syncwarp();
+  for (int i = lane; i < kActions * kBoardH; i += 32) {
+    const int a = i / kBoardH;
+    const int o = sm.fresh[a];
+    if (o >= 0) obs_bits[((size_t)b * kBoardH + (i - a * kBoardH)) * M + o] = sm.pk[i];
   }
 }
 
 // ---------------------------------------------------------------------------
-// The reverse Welford + gamma walk up one lane's trace, shared by the LP and
-// the plain backup kernels (as the TPU kernels share _reverse_welford_walk),
-// so a fix reaches both. Levels run strictly in order: a trace can hold the
-// same obs twice. A first visit sets (v_rel, var0); later ones run the
-// Welford mean/var update. Then v <- gamma * v_rel + node score.
+// The reverse Welford + gamma walk up one tree's trace, a thread per tree:
+// backup_kernel's walk (the LP backup runs the same arithmetic a warp per
+// tree, in lp_backup_kernel, until backup_kernel gets that form too).
+// Levels run strictly in order: a trace can hold the same obs twice. A
+// first visit sets (v_rel, var0); later ones run the Welford mean/var
+// update. Then v <- gamma * v_rel + node score.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void reverse_welford_walk(
     const int* tr, int len, const float* score, const float* obs_id,
@@ -396,59 +409,168 @@ __device__ __forceinline__ void reverse_welford_walk(
 
 // ---------------------------------------------------------------------------
 // LP backup: seed the leaf's fresh unique children, average, then the
-// reverse Welford + gamma walk up the trace
+// reverse Welford + gamma walk up the trace.
+//
+// A warp per tree, kWalkWarps trees a block. What bounds it is the chain of
+// dependent loads: walked a level at a time, every level waits on its trace
+// entry, its node and its obs statistics in turn. So the loads are spent
+// once a chunk of up to 32 levels, lane l on level len-1-l of the first
+// chunk: lengths, then every level's trace entry, then its node's score/obs
+// (lanes 0-6 fetch the leaf's child base in the same round trip), then the
+// 7 children (lanes 0-6), then the statistics of the children and of every
+// level at once.
+// Lanes 0-6 seed their fresh kept children, and every lane sums the kept
+// children in action order through a serial shuffle chain, so v and var0
+// are the plain version's floats, the same in every lane. A level whose obs
+// is a seeded child's takes the seeded statistics from that lane. The walk
+// itself is arithmetic only: at step i every lane evaluates the update on
+// its own level, lane i's result and next v are broadcast, and the lanes of
+// lane i's __match_any_sync obs group take lane i's new statistics, so a
+// trace holding one obs twice stays exact. The highest lane of each group
+// (the lowest level) then stores once per distinct obs. Longer traces run
+// further chunks, each loading after the previous chunk's stores and a
+// __syncwarp, so obs repeated across chunks see the earlier updates.
 // ---------------------------------------------------------------------------
-__global__ void lp_backup_kernel(const int* __restrict__ traces,
-                                 const int* __restrict__ lengths,
-                                 const float* __restrict__ v_nn,
-                                 const float* __restrict__ var_nn,
-                                 const bool* __restrict__ expanded,
-                                 const int* __restrict__ cbase,
-                                 const float* __restrict__ nstat,
-                                 const bool* __restrict__ end, float* visits,
-                                 float* values, float* vars, int B, int N,
-                                 int M, int D, float gamma) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__global__ void __launch_bounds__(kWalkWarps * 32)
+lp_backup_kernel(const int* __restrict__ traces,
+                 const int* __restrict__ lengths,
+                 const float* __restrict__ v_nn,
+                 const float* __restrict__ var_nn,
+                 const bool* __restrict__ expanded,
+                 const int* __restrict__ cbase,
+                 const float* __restrict__ nstat,
+                 const bool* __restrict__ end, float* visits, float* values,
+                 float* vars, int B, int N, int M, int D, float gamma) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWalkWarps + warp;
+  if (b >= B) return;  // the whole warp leaves together
   const int* tr = traces + (size_t)b * D;
   const float* score = nstat + (size_t)b * 2 * N;
   const float* obs_id = score + N;
   float* vis = visits + (size_t)b * M;
   float* val = values + (size_t)b * M;
   float* var_ = vars + (size_t)b * M;
-  const int len = lengths[b];
-  const bool exp_ = expanded[b];
-  const int leaf = tr[max(len - 1, 0)];
-  const int c = cbase[(size_t)b * N + leaf];
-  const bool has_kids = c != 0;
+  const bool child = lane < kActions;
 
-  int obs[kActions];
-  float sck[kActions];
-  bool endk[kActions], kept[kActions];
-  for (int a = 0; a < kActions; ++a) {
-    obs[a] = has_kids ? (int)obs_id[c + a] : -1;
-    sck[a] = has_kids ? score[c + a] : 0.0f;
-    endk[a] = has_kids && end[(size_t)b * N + c + a];
+  const int len = min(lengths[b], D);
+  const bool exp_ = expanded[b];
+  const float vnn = child ? v_nn[b * kActions + lane] : 0.0f;
+  const float varnn = child ? var_nn[b * kActions + lane] : 0.0f;
+  // the first chunk's levels; lane 0 always reads the leaf, tr[max(len-1, 0)]
+  int t = len - 1 - lane;
+  bool live = t >= 0;
+  int idx = live || lane == 0 ? tr[max(t, 0)] : 0;
+  const int leaf = __shfl_sync(kFull, idx, 0);
+  float s = live || lane == 0 ? score[idx] : 0.0f;
+  int o = live ? (int)obs_id[idx] : -1;
+  const int c = child ? cbase[(size_t)b * N + leaf] : 0;
+  const float leaf_score = __shfl_sync(kFull, s, 0);
+  // the leaf's children, a child a lane (c is 0 off lanes 0-6)
+  const bool has_kids = c != 0;
+  const int ko = has_kids ? (int)obs_id[c + lane] : -1;
+  const float ksc = has_kids ? score[c + lane] : 0.0f;
+  const bool kend = has_kids && end[(size_t)b * N + c + lane];
+  // unique children by obs: keep the earliest child of each obs group with
+  // the group's max score
+  bool kept = has_kids && exp_;
+#pragma unroll
+  for (int j = 0; j < kActions; ++j) {
+    const int oj = __shfl_sync(kFull, ko, j);
+    const float sj = __shfl_sync(kFull, ksc, j);
+    const bool beats = ksc > sj || (ksc == sj && lane <= j);
+    if (oj == ko && !beats) kept = false;
   }
-  unique_kept(obs, sck, has_kids && exp_, kept);
+  float kvi = 0.0f, kva = 0.0f, kvr = 0.0f;
+  if (kept) {
+    kvi = vis[ko];
+    kva = val[ko];
+    kvr = var_[ko];
+  }
+  float n = 0.0f, va = 0.0f, vr = 0.0f;
+  if (live) {
+    n = vis[o];
+    va = val[o];
+    vr = var_[o];
+  }
+  __syncwarp();  // every load above comes before the seed's stores
+  const bool seed = kept && kvi == 0.0f;
+  if (seed) {
+    kvi = kvi + 1.0f;
+    kva = kend ? 0.0f : vnn;
+    kvr = kend ? 0.0f : varnn;
+    vis[ko] = kvi;
+    val[ko] = kva;
+    var_[ko] = kvr;
+  }
+  // the kept children's sums in action order, the same chain in every lane
+  const float term = ksc + gamma * kva;
+  const unsigned kept_mask = __ballot_sync(kFull, kept);
+  const unsigned seed_mask = __ballot_sync(kFull, seed);
   float v_sum = 0.0f, var_sum = 0.0f;
-  int k = 0;
-  for (int a = 0; a < kActions; ++a) {
-    if (!kept[a]) continue;
-    int o = obs[a];
-    if (vis[o] == 0.0f) {
-      vis[o] = vis[o] + 1.0f;
-      val[o] = endk[a] ? 0.0f : v_nn[b * kActions + a];
-      var_[o] = endk[a] ? 0.0f : var_nn[b * kActions + a];
+#pragma unroll
+  for (int j = 0; j < kActions; ++j) {
+    const float tj = __shfl_sync(kFull, term, j);
+    const float rj = __shfl_sync(kFull, kvr, j);
+    const int oj = __shfl_sync(kFull, ko, j);
+    const float aj = __shfl_sync(kFull, kva, j);
+    if (kept_mask >> j & 1u) {
+      v_sum = v_sum + tj;
+      var_sum = var_sum + rj;
     }
-    v_sum = v_sum + (sck[a] + gamma * val[o]);
-    var_sum = var_sum + var_[o];
-    ++k;
+    // a level holding a seeded child's obs takes the seeded statistics
+    if ((seed_mask >> j & 1u) && live && oj == o) {
+      n = 1.0f;
+      va = aj;
+      vr = rj;
+    }
   }
-  float kf = (float)max(k, 1);
-  float v = exp_ ? v_sum / kf : score[leaf];
+  const float kf = (float)max(__popc(kept_mask), 1);
+  float v = exp_ ? v_sum / kf : leaf_score;
   const float var0 = exp_ ? var_sum * gamma * gamma / kf : 0.0f;
-  reverse_welford_walk(tr, len, score, obs_id, vis, val, var_, v, var0, gamma);
+  __syncwarp();  // the seed's stores come before the walk's
+
+  for (int top = len - 1; top >= 0; top -= 32) {
+    if (top != len - 1) {  // a later chunk: load after the last one's stores
+      t = top - lane;
+      live = t >= 0;
+      idx = live ? tr[t] : 0;
+      s = live ? score[idx] : 0.0f;
+      o = live ? (int)obs_id[idx] : -1;
+      if (live) {
+        n = vis[o];
+        va = val[o];
+        vr = var_[o];
+      }
+    }
+    const unsigned grp = __match_any_sync(kFull, live ? o : -1 - lane);
+    const int steps = min(top + 1, 32);
+    for (int i = 0; i < steps; ++i) {
+      // every lane evaluates the update on its level; lane i's is the one
+      // this step takes (the next v first: it alone carries to the next step)
+      const float v_rel = v - s;
+      v = __shfl_sync(kFull, gamma * v_rel + s, i);
+      const bool first = n == 0.0f;
+      const float delta = v_rel - va;
+      const float val_new = first ? v_rel : va + delta / (n + 1.0f);
+      const float delta2 = v_rel - val_new;
+      const float var_new = first ? var0 : vr + (delta * delta2 - vr) / (n + 1.0f);
+      const float n_i = __shfl_sync(kFull, n + 1.0f, i);
+      const float va_i = __shfl_sync(kFull, val_new, i);
+      const float vr_i = __shfl_sync(kFull, var_new, i);
+      if (grp >> i & 1u) {  // lane i holds this lane's obs
+        n = n_i;
+        va = va_i;
+        vr = vr_i;
+      }
+    }
+    if (live && lane == 31 - __clz(grp)) {  // the obs's lowest level stores
+      vis[o] = n;
+      val[o] = va;
+      var_[o] = vr;
+    }
+    __syncwarp();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -541,7 +663,8 @@ int insert7_walk(const void* packed7, const void* end7, const void* ok,
                  void* tbl_h1, void* tbl_h2, void* tbl_obs, void* n_obs,
                  void* obs_end, void* obs_bits, void* obs7, int B, int T,
                  int M, void* stream) {
-  insert7_kernel<<<blocks(B), kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (B + kWalkWarps - 1) / kWalkWarps;
+  insert7_kernel<<<grid, kWalkWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)packed7, (const bool*)end7, (const bool*)ok,
       (uint32_t*)tbl_h1, (uint32_t*)tbl_h2, (int*)tbl_obs, (int*)n_obs,
       (bool*)obs_end, (uint32_t*)obs_bits, (int*)obs7, B, T, M);
@@ -553,7 +676,8 @@ int lp_backup_walk(const void* traces, const void* lengths, const void* v_nn,
                    const void* nstat, const void* end, void* visits,
                    void* values, void* vars, int B, int N, int M, int D,
                    float gamma, void* stream) {
-  lp_backup_kernel<<<blocks(B), kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (B + kWalkWarps - 1) / kWalkWarps;
+  lp_backup_kernel<<<grid, kWalkWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int*)traces, (const int*)lengths, (const float*)v_nn,
       (const float*)var_nn, (const bool*)expanded, (const int*)cbase,
       (const float*)nstat, (const bool*)end, (float*)visits, (float*)values,

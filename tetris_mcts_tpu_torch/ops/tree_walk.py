@@ -16,20 +16,25 @@ device, counting the launch in `LAUNCHES`; on the CPU it runs the plain
 torch version, which is also what the kernel is held against on the card.
 Any other device raises. The kernels update the tree in place.
 
-What bounds them on the H100, and what the design does about it: each is a
+What bounds them on the H100, and what the designs do about it: each is a
 walk of dependent loads (child base -> 7 children -> their statistics, one
-level after another), so a tree's time is a chain of memory latencies and
-of the serial work between them, and the bytes a walk touches (about 0.2 KB
-a level) are far below what the card's 3.35 TB/s could move. Insert and
-the backups run one thread per tree. Select, which also steps the env at
-every descent and the leaf's 7 children, runs a warp per tree: the 7
-children in lanes, the env in shared memory, the descent step spread over
-the board's rows (see `csrc/tree_walk.cu`). Levels stay strictly
-sequential; the ~0.5 MB of tree state per lane stays in device memory and
-the hot lines in L2 (34 MB at B=64, within the 50 MB L2). Every device loop
-is bounded: select by D levels, insert by PROBE_ROUNDS rounds, backup by
-the trace length (<= D). Each kernel launches on the stream of its tensors'
-device, with that device current (`build.launch`).
+level after another; a probe slot, then the next), so a tree's time is a
+chain of memory latencies and of the serial work between them, and the
+bytes a walk touches (about 0.2 KB a level) are far below what the card's
+3.35 TB/s could move. So select, insert and the LP backup run a warp per
+tree, two trees a block, with the 7 children in lanes, to cut the number of
+dependent round trips: select loads a level in two (and steps the env in
+shared memory, a board row a lane); insert resolves a probe round of all 7
+keys in one, settling contending claims in registers; the LP backup loads
+up to 32 levels of its trace at once, a level a lane, and walks them by
+shuffles, so it pays its round trips once a chunk of 32 levels, not once a
+level (see `csrc/tree_walk.cu`). `backup` still runs a thread per tree.
+Levels stay strictly sequential; the ~0.5 MB of tree state per lane stays
+in device memory and the hot lines in L2 (34 MB at B=64, within the 50 MB
+L2). Every device loop is bounded: select by D levels, insert by
+PROBE_ROUNDS rounds, the backups by the trace length (<= D). Each kernel
+launches on the stream of its tensors' device, with that device current
+(`build.launch`).
 """
 
 from __future__ import annotations
