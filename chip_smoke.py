@@ -35,11 +35,12 @@ of the JAX package. Phases, each printing its elapsed seconds:
    version (integers exact; values/vars within rtol 1e-6 / atol 1e-5; the
    select kernel under every selection rule it accepts, on the lp and the
    leaf trees; the forward within rtol 1e-4, atol 1e-3 / 1e-2 against its
-   plain version and `VVNet`, also on 1792 boards; the bench walk exact;
-   insert and the LP backup also on the edge inputs of
+   plain version and `VVNet`, also on 1792 boards; the bench walk and the
+   backup exact; insert and both backups also on the edge inputs of
    tests/torch_walk_cases.py: D=96 traces with repeated obs within and
-   across the LP kernel's chunks of 32 levels, a 16-slot table with
-   contending keys, a wrapping probe and an id pool that runs out),
+   across the backups' chunks of 32 levels, a 16-slot table with
+   contending keys, a wrapping probe and an id pool that runs out; the
+   bench walk also at B = 1 and 67 and at M = 4, where lanes revisit rows),
    with the kernel's device time a launch (torch.profiler; for the forward
    both of its kernels), the time of a call through its wrapper and of its
    plain version (CUDA events), a bound, and for the forward the device
@@ -403,8 +404,9 @@ def main() -> int:
         say(f"phase build: {name}: nvcc {build.build_seconds[name]:.1f}s; ptxas: "
             f"{' | '.join(ptxas_summary(build.ptxas_log.get(name, '')))}")
     walk_ptxas = ptxas_summary(build.ptxas_log.get("tree_walk", ""))
-    say("ptxas -v of the warp-per-tree insert and LP backup: " + (" | ".join(
-        x for x in walk_ptxas if x.startswith(("insert7_kernel", "lp_backup_kernel")))
+    say("ptxas -v of the backups and the bench walk, and of insert: " + (" | ".join(
+        x for x in walk_ptxas if x.startswith(("backup_kernel", "lp_backup_kernel",
+                                               "bench_walk_kernel", "insert7_kernel")))
         or "none: the library was built before this run"))
     say(f"phase build took {time.perf_counter() - t:.1f}s (nvcc calls in parallel, "
         f"with load)")
@@ -603,9 +605,10 @@ def main() -> int:
         f"{launches['lp_backup_walk']} launches on the lp path")
 
     edge_err = walk_edges(torch, tree_walk, T)
-    say(f"kernel insert7_walk and lp_backup_walk on the edge inputs (B=67): obs ids, "
-        f"tables, obs rows and visits equal to plain; values/vars max abs err "
-        f"{edge_err:.3e}")
+    say(f"kernel insert7_walk, lp_backup_walk and backup_walk on the edge inputs (B=67, "
+        f"D=96): obs ids, tables, obs rows and visits equal to plain, the backup's values "
+        f"and vars too; LP values/vars max abs err {edge_err:.3e}; bench_walk equal to "
+        f"plain at B=1, 67 and M=4, 2048")
 
     # the backup walk on the leaf path's grown trees, from the leaf
     # evaluator's (v0, var0): leaf score + net value, net variance
@@ -616,9 +619,8 @@ def main() -> int:
     b_k, b_p = leaf_trees.clone(), leaf_trees.clone()
     tree_walk.backup(b_k, l_traces, l_lengths, v0, lvar, tcfg)
     T.backup_batched(b_p, l_traces, l_lengths, v0, lvar, tcfg)
-    close("backup visits", b_k.visits, b_p.visits, True)
-    err = max(close("backup values", b_k.values, b_p.values, False),
-              close("backup vars", b_k.vars_, b_p.vars_, False))
+    err = max(close(f"backup {f}", getattr(b_k, f), getattr(b_p, f), True)
+              for f in ("visits", "values", "vars_"))
     bk = lambda tt: tree_walk.backup(tt, l_traces, l_lengths, v0, lvar, tcfg)
     fresh = lambda: (leaf_trees.clone(),)
     ms_k = device_ms(bk, 20, "tmt::backup_kernel", setup=fresh)
@@ -628,7 +630,7 @@ def main() -> int:
     rows.append(("backup_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:161",
                  leaf_launches, err, ms_k, ev_k, ms_p,
                  bytes_backup(l_lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
-    say(f"kernel backup_walk: visits equal to plain, values/vars max abs err {err:.3e}; "
+    say(f"kernel backup_walk: visits, values and vars equal to plain; "
         f"{ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call with the wrapper), "
         f"{ms_p:.1f} ms plain; {leaf_launches['backup_walk']} launches on the leaf "
         f"path; mean length {l_lengths.float().mean().item():.1f}")
@@ -705,11 +707,16 @@ def main() -> int:
 
 
 def walk_edges(torch, tree_walk, T, B=67):
-    """Insert and the LP backup against their plain versions on the card, on
+    """Insert and both backups against their plain versions on the card, on
     the edge inputs of tests/torch_walk_cases.py (B=67: every trace length
-    and a partly full last block). Returns the LP's max abs err of
-    values/vars; raises on any difference."""
+    and a partly full last block), and the bench walk at small and ragged
+    shapes. Returns the LP's max abs err of values/vars; raises on any
+    difference."""
     from pathlib import Path
+
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.ops import bench_walk
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import torch_walk_cases as C
@@ -725,6 +732,22 @@ def walk_edges(torch, tree_walk, T, B=67):
     close("edges lp visits", tk.visits, tp.visits, True)
     err = max(close("edges lp values", tk.values, tp.values, False),
               close("edges lp vars", tk.vars_, tp.vars_, False))
+    case = C.backup_case(0, B, 96)
+    tk, tp = C.lp_tree(case, "cuda"), C.lp_tree(case, "cuda")
+    args = C.backup_args(case, "cuda")
+    tree_walk.backup(tk, *args, cfg)
+    T.backup_batched(tp, *args, cfg)
+    for f in ("visits", "values", "vars_"):
+        close(f"edges backup {f}", getattr(tk, f), getattr(tp, f), True)
+    rng = np.random.RandomState(1)
+    for b, m in ((1, 4), (67, 4), (1, 2048), (67, 2048)):
+        idxs = torch.as_tensor(rng.randint(1, m, (bench_walk.LEVELS, b)).astype(np.int32),
+                               device="cuda")
+        stats = [torch.as_tensor(rng.rand(m, b).astype(np.float32), device="cuda")
+                 for _ in range(3)]
+        for n, x, y in zip(("visit", "value", "var"), bench_walk.bench_walk(idxs, *stats),
+                           bench_walk.bench_walk_plain(idxs, *stats)):
+            close(f"edges bench_walk {n} (B={b}, M={m})", x, y, True)
     packed7, end7, ok = C.insert_case(0, B)
     tk, tp = C.insert_trees(0, B, "cuda"), C.insert_trees(0, B, "cuda")
     ran_out = False

@@ -9,17 +9,21 @@ Integers must match exactly; values and vars within rtol 1e-6 / atol 1e-5
 (tests/test_search.py's backup tolerance); the fused VV forward within
 rtol 1e-4, atol 1e-3 (value) / 1e-2 (variance) (tests/test_ops.py's).
 
-The select, insert and LP-backup kernels run a warp per tree, two trees a
-block: each is checked at B = 1, 5, 64 and 67 (one tree, a partial block,
-full blocks, and the odd batch of more than one block), select also on
-depth-capped walks. Insert and the LP backup are also checked on the edge
-inputs of tests/torch_walk_cases.py (D=96 traces that hold one obs twice
-within and across chunks of 32 levels, leaf children whose obs lie on the
-trace, leaves without children, lanes not expanded, length 1; a 16-slot
-table with contending keys, duplicates, a wrapping probe and an id pool
-that runs out), integers and obs rows compared with torch.equal. The
-forward picks its boards per block from n and tiles the FC over 16 boards:
-it is checked from 1 to 1792 boards, across tile and block edges.
+The walk kernels run a warp per tree, two trees a block: each is checked
+at B = 1, 5, 16, 64 and 67 (one tree, a partial block, full blocks, and
+the odd batch of more than one block), select also on depth-capped walks.
+Insert and both backups are also checked on the edge inputs of
+tests/torch_walk_cases.py (D=96 traces that hold one obs twice within and
+across the backups' chunks of 32 levels, leaf children whose obs lie on
+the trace, leaves without children, lanes not expanded, lengths 0 and 1; a
+16-slot table with contending keys, duplicates, a wrapping probe and an id
+pool that runs out), integers and obs rows compared with torch.equal; the
+backup's values and vars too. The bench walk copies on every SM, 16 bytes
+a load where B is a multiple of 4: it is checked at B = 1, 67 and 256 and
+at M = 4 (every lane revisits rows) and 2048, every output with
+torch.equal. The forward picks its boards per block from n and tiles the
+FC over 16 boards: it is checked from 1 to 1792 boards, across tile and
+block edges.
 """
 
 import numpy as np
@@ -104,17 +108,21 @@ def test_select_kernel_depth_capped(grown, policy):
         assert torch.equal(g, w)
 
 
-def test_bench_walk_kernel_matches_plain():
+@pytest.mark.parametrize("b,m", [(256, 2048), (1, 2048), (67, 2048), (256, 4), (67, 4),
+                                 (1, 4)])
+def test_bench_walk_kernel_matches_plain(b, m):
     """The micro-benchmark walk at the script's shapes (B=256, M=2048, 16
-    levels), from statistics that are not all zero."""
+    levels), at batches that are not a multiple of 4 (4-byte copies), and
+    at M=4, where every lane revisits rows; from statistics that are not
+    all zero."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     from tetris_mcts_tpu_torch.ops import bench_walk as BW
 
     rng = np.random.RandomState(0)
-    idxs = torch.as_tensor(rng.randint(1, 2048, (BW.LEVELS, 256)).astype(np.int32),
+    idxs = torch.as_tensor(rng.randint(1, m, (BW.LEVELS, b)).astype(np.int32),
                            device="cuda")
-    stats = [torch.as_tensor(rng.rand(2048, 256).astype(np.float32), device="cuda")
+    stats = [torch.as_tensor(rng.rand(m, b).astype(np.float32), device="cuda")
              for _ in range(3)]
     BW.reset_launches()
     got = BW.bench_walk(idxs, *stats)
@@ -122,6 +130,8 @@ def test_bench_walk_kernel_matches_plain():
     want = BW.bench_walk_plain(idxs, *stats)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if m == 4:
+        assert int(want[0].max()) > 4  # lanes revisited rows
 
 
 @pytest.mark.parametrize("n", [1, 5, B, 64, 67])
@@ -160,21 +170,22 @@ def test_lp_backup_kernel_matches_plain(grown, n):
     torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
 
 
-def test_backup_kernel_matches_plain(grown):
-    grown = lanes(grown, B)
-    traces, lengths, *_ = W.select_walk(grown, *M.TorchPlanes(4, "cuda")(B, CFG.max_depth),
+@pytest.mark.parametrize("n", [1, 5, B, 64, 67])
+def test_backup_kernel_matches_plain(grown, n):
+    """On the grown trees' first n lanes (a warp per tree, two a block)."""
+    grown = lanes(grown, n)
+    traces, lengths, *_ = W.select_walk(grown, *M.TorchPlanes(4, "cuda")(n, CFG.max_depth),
                                         CFG)
-    v0 = torch.linspace(3.0, 70.0, B, device="cuda")
-    var0 = torch.linspace(0.25, 2.0, B, device="cuda")
+    v0 = torch.linspace(3.0, 70.0, n, device="cuda")
+    var0 = torch.linspace(0.25, 2.0, n, device="cuda")
     tk, tp = grown.clone(), grown.clone()
     W.reset_launches()
     W.backup(tk, traces, lengths, v0, var0, CFG)
     assert W.LAUNCHES["backup_walk"] == 1
     T.backup_batched(tp, traces, lengths, v0, var0, CFG)
-    assert torch.equal(tk.visits, tp.visits)
+    for f in ("visits", "values", "vars_"):
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
     assert not torch.equal(tk.visits, grown.visits)
-    torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
-    torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
 
 
 @pytest.fixture
@@ -200,6 +211,24 @@ def test_lp_backup_kernel_edges(card, n):
     assert torch.equal(tk.visits, tp.visits)
     torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)
     torch.testing.assert_close(tk.vars_, tp.vars_, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 5, 64, 67])
+def test_backup_kernel_edges(card, n):
+    """The backup from given (v0, var0) on the LP edge trees: D=96 traces
+    from 0 to 96 levels, obs repeated within and across chunks."""
+    case = C.backup_case(n, n, 96)
+    if n >= 64:
+        assert C.repeats(case)[:2] == (True, True)
+    cfg = T.TreeConfig(max_nodes=C.LP_N, max_obs=C.LP_M, table_size=16, max_depth=96)
+    tk, tp = C.lp_tree(case, "cuda"), C.lp_tree(case, "cuda")
+    args = C.backup_args(case, "cuda")
+    W.reset_launches()
+    W.backup(tk, *args, cfg)
+    assert W.LAUNCHES["backup_walk"] == 1
+    T.backup_batched(tp, *args, cfg)
+    for f in ("visits", "values", "vars_"):
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
 
 
 @pytest.mark.parametrize("n", [1, 5, 64, 67])

@@ -1,13 +1,14 @@
-"""The plain versions of the insert and LP-backup walks against the JAX
+"""The plain versions of the insert and backup walks against the JAX
 package on edge inputs (tests/torch_walk_cases.py), on the CPU.
 
-The kernels run a warp per tree: the LP backup walks a trace in chunks of
+The kernels run a warp per tree: both backups walk a trace in chunks of
 32 levels, a level a lane, and the insert settles a probe round's claims in
-registers. Their plain versions (what `tree_walk.lp_backup` and
-`tree_walk.insert_obs7` run on the CPU, and what the kernels are held
-against on the card in tests/test_torch_cuda.py and chip_smoke.py) are
-held here against the JAX wrappers run interpreted, as the JAX package's
-own tests run them, on the inputs that stress those designs:
+registers. Their plain versions (what `tree_walk.lp_backup`,
+`tree_walk.backup` and `tree_walk.insert_obs7` run on the CPU, and what
+the kernels are held against on the card in tests/test_torch_cuda.py and
+chip_smoke.py) are held here against the JAX wrappers run interpreted, as
+the JAX package's own tests run them, on the inputs that stress those
+designs:
 
 - `lp_backup_plain` against `lp_backup_batched_pallas` at D=40, above one
   chunk: traces of 1 to 40 levels holding one obs twice within 32 levels
@@ -16,6 +17,8 @@ own tests run them, on the inputs that stress those designs:
   equal; values and vars within rtol 1e-6 / atol 1e-5 (XLA on the CPU
   contracts two multiply-adds of the interpreted walk into fused ones,
   tests/test_torch_leaf.py).
+- `backup_batched` against `backup_walk` on the same trees and traces from
+  (v0, var0) given per lane, one lane with an empty trace; same tolerance.
 - `insert_obs7_batched` against `insert_obs7_batched_pallas` over a
   sequence of inserts into a 16-slot table with a 12-id pool: distinct
   keys contend for one slot, lanes hold duplicate keys, probes wrap from
@@ -35,7 +38,7 @@ from tetris_mcts_tpu.search import tree as JT
 from tetris_mcts_tpu_torch.ops import tree_walk as W
 from tetris_mcts_tpu_torch.search import tree as T
 import torch_walk_cases as C
-from torch_parity import assert_tree_equal, tree_from_jax
+from torch_parity import STAT_TOL, assert_tree_equal, tree_from_jax
 
 torch.set_num_threads(1)
 
@@ -59,6 +62,25 @@ def test_lp_backup_plain_matches_pallas_long_traces(seed):
     W.lp_backup(tt, *C.lp_args(case), T.TreeConfig(max_nodes=C.LP_N, max_obs=C.LP_M,
                                                    table_size=128, max_depth=LP_D))
     assert_tree_equal(tt, want)
+    assert not np.array_equal(tt.visits.numpy(), case["visits"])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backup_plain_matches_pallas_long_traces(seed):
+    case = C.backup_case(seed, LP_B, LP_D)
+    assert C.repeats(case)[:2] == (True, True)
+    assert case["lengths"].min() == 0
+    cfg = T.TreeConfig(max_nodes=C.LP_N, max_obs=C.LP_M, table_size=128, max_depth=LP_D)
+    want = JW.backup_walk(
+        *[jnp.asarray(case[k]) for k in ("traces", "lengths", "v0", "var0")],
+        jnp.asarray(case["nstat"][:, 0]), jnp.asarray(case["nstat"][:, 1].astype(np.int32)),
+        *[jnp.asarray(case[k]) for k in ("visits", "values", "vars_")],
+        gamma=cfg.gamma, interpret=True)
+    tt = C.lp_tree(case)
+    W.backup(tt, *C.backup_args(case), cfg)
+    np.testing.assert_array_equal(tt.visits.numpy(), np.asarray(want[0]))
+    for got, w in ((tt.values, want[1]), (tt.vars_, want[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **STAT_TOL)
     assert not np.array_equal(tt.visits.numpy(), case["visits"])
 
 

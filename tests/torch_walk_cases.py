@@ -1,4 +1,4 @@
-"""Edge inputs of the insert and LP-backup walks, made with numpy from a seed.
+"""Edge inputs of the insert and backup walks, made with numpy from a seed.
 
 Shared by tests/test_torch_walk_edges.py (the plain versions against the
 JAX package on the CPU), tests/test_torch_cuda.py and chip_smoke.py (the
@@ -13,6 +13,9 @@ port only, never JAX, so it runs on the card's machine.
   fourth leaf has no children, every fifth lane is not expanded, and a
   fifth of the nodes (children too) have ended. A third of the statistics
   have no visits, so children are seeded and levels take first visits.
+- `backup_case`: an `lp_case`'s trees and traces with (v0, var0) given per
+  lane, for the backup from given values (the leaf and rollout paths); the
+  last lane of a batch of several has an empty trace (length 0).
 - `insert_case`: insert rounds into a 16-slot table with a 12-id obs pool,
   from a pool of 16 boards whose home slots crowd at 14, 15 and 0: distinct
   keys contend for one slot, lanes hold duplicates, probes wrap from slot
@@ -67,6 +70,19 @@ def lp_case(seed, B, D):
         expanded=np.arange(B) % 5 != 4)
 
 
+def backup_case(seed, B, D):
+    """numpy arrays of one backup call: an `lp_case` (its v_nn, var_nn and
+    expanded unused) with v0 (B,) and var0 (B,), the last lane's trace
+    emptied when B > 1."""
+    case = lp_case(seed, B, D)
+    if B > 1:
+        case["lengths"][-1] = 0
+    rng = np.random.RandomState(seed + 1000)
+    case["v0"] = rng.uniform(0, 70, B).astype(np.float32)
+    case["var0"] = rng.uniform(0, 5, B).astype(np.float32)
+    return case
+
+
 def lp_tree(case, device="cpu"):
     """The port's Tree holding an `lp_case`'s fields (the rest zero)."""
     B, N = case["cbase"].shape
@@ -84,6 +100,12 @@ def lp_args(case, device="cpu"):
     """(traces, lengths, v_nn, var_nn, expanded) of an `lp_case` as tensors."""
     return tuple(torch.as_tensor(case[k], device=device)
                  for k in ("traces", "lengths", "v_nn", "var_nn", "expanded"))
+
+
+def backup_args(case, device="cpu"):
+    """(traces, lengths, v0, var0) of a `backup_case` as tensors."""
+    return tuple(torch.as_tensor(case[k], device=device)
+                 for k in ("traces", "lengths", "v0", "var0"))
 
 
 def repeats(case):

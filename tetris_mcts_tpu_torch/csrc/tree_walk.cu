@@ -16,19 +16,20 @@
 // latencies and of the serial work between them; the bytes moved are a few
 // hundred per level, far under the card's bandwidth (the 34 MB of tree
 // state at B=64 stays L2-resident). So the designs cut the number of
-// dependent round trips, with a warp per tree and the 7 children in lanes:
-// select loads a level's children, their statistics and their child bases
-// in two round trips and steps the env in shared memory; insert resolves
-// all 7 keys of a probe round in one round trip, with the claims settled in
-// registers; the LP backup loads up to 32 levels of its trace at once (a
-// level a lane) and walks them by shuffles, so its round trips are counted
-// per chunk of 32 levels, not per level. backup_kernel still runs a thread
-// per tree. Levels stay strictly sequential within a tree (one trace can
-// hold the same obs twice, so Welford updates must not be reordered), and
-// the first index wins every exact tie. The Mosaic workarounds of the TPU
-// kernels (iota-mask gathers, i1 widening, VMEM block fitting, alias
-// toggles) have no counterpart here. Every loop is bounded: select by D
-// levels, insert by kInsertRounds rounds, the backups by the trace length.
+// dependent round trips, with a warp per tree: select loads a level's
+// children (in lanes 0-6), their statistics and their child bases in two
+// round trips and steps the env in shared memory; insert resolves all 7
+// keys of a probe round in one round trip, with the claims settled in
+// registers; both backups share one walk (warp_welford_walk) that loads up
+// to 32 levels of the trace at once (a level a lane) and walks them by
+// shuffles, so its round trips are counted per chunk of 32 levels, not per
+// level. Updates keep the order of the levels (one trace can hold the same
+// obs twice, so Welford updates must not be reordered), and the first index
+// wins every exact tie. The bench walk is bound by bytes instead, and
+// copies on every SM. The Mosaic workarounds of the TPU kernels (iota-mask
+// gathers, i1 widening, VMEM block fitting, alias toggles) have no
+// counterpart here. Every loop is bounded: select by D levels, insert by
+// kInsertRounds rounds, the backups by the trace length.
 //
 // Float arithmetic is written in the order of the plain torch versions and
 // compiled with --fmad=false, so both round alike.
@@ -42,7 +43,6 @@ namespace tmt {
 
 constexpr int kActions = 7;
 constexpr int kInsertRounds = 128;  // the TPU kernel's _INSERT_ROUNDS
-constexpr int kThreads = 64;  // backup_kernel: a thread per tree
 
 // Indexed by the position of the policy's name in ops/tree_walk.py POLICIES:
 // the two orders must match (tests/test_torch_search.py checks it).
@@ -260,7 +260,7 @@ select_kernel(const int* __restrict__ cbase, const float* __restrict__ nstat,
 // representatives' obs_bits rows (140 words at most) are written by the
 // whole warp from shared memory.
 // ---------------------------------------------------------------------------
-constexpr int kWalkWarps = 2;           // trees a block, insert and LP backup
+constexpr int kWalkWarps = 2;           // trees a block: insert and both backups
 constexpr unsigned kActionLanes = (1u << kActions) - 1;
 
 __constant__ uint32_t kHK1[20] = {
@@ -379,57 +379,110 @@ insert7_kernel(const uint32_t* __restrict__ packed7,
 }
 
 // ---------------------------------------------------------------------------
-// The reverse Welford + gamma walk up one tree's trace, a thread per tree:
-// backup_kernel's walk (the LP backup runs the same arithmetic a warp per
-// tree, in lp_backup_kernel, until backup_kernel gets that form too).
-// Levels run strictly in order: a trace can hold the same obs twice. A
-// first visit sets (v_rel, var0); later ones run the Welford mean/var
-// update. Then v <- gamma * v_rel + node score.
+// The reverse Welford + gamma walk up one tree's trace, a warp per tree:
+// the walk of both backups (lp_backup_kernel and backup_kernel), as the TPU
+// kernels share _reverse_welford_walk, so a fix reaches both.
+//
+// Levels run len-1 .. 0 in order: a trace can hold the same obs twice, and
+// each visit must see the earlier ones' updates. A first visit sets (v_rel, var0); later ones run the Welford
+// mean/var update. Then v <- gamma * v_rel + node score. What bounds the
+// walk is its chain of dependent loads (trace entry -> node -> obs
+// statistics, a level at a time), so it takes up to 32 levels at once, lane
+// l on level top-l of the chunk that starts at level `top`: one round trip
+// for every level's trace entry, one for the nodes' score/obs, one for the
+// statistics. The rest is arithmetic and shuffles, in two passes:
+//   1. v, level by level: each step broadcasts the level's score and every
+//      lane computes the same next v (the only serial chain), and the
+//      level's lane keeps its v_rel;
+//   2. the statistics, every lane its own level at once. The levels of one
+//      obs in the chunk are a __match_any_sync group; its k-th level (k-th
+//      lane from the lowest, k = 0, 1, ...) is final in round k, which
+//      starts from the (k-1)-th level's result, shuffled to it at the end
+//      of round k-1. So there are as many rounds as the largest group has
+//      levels (1 when no obs repeats in the chunk).
+// The group's last level (its highest lane) stores, once per distinct obs.
+// A later chunk loads after the previous chunk's stores and a __syncwarp,
+// so obs repeated across chunks see the earlier updates. Lanes past the
+// trace (t < 0) key their group by -1 - lane, so they join none. Every
+// float operation is the plain version's, in its order.
+//
+// When `loaded`, the caller has already fetched the first chunk's levels
+// (s, o, and the obs statistics n/va/vr; o = -1 off the trace), together
+// with loads of its own; otherwise the walk fetches them.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void reverse_welford_walk(
+__device__ __forceinline__ void warp_welford_walk(
     const int* tr, int len, const float* score, const float* obs_id,
-    float* vis, float* val, float* var_, float v, float var0, float gamma) {
-  for (int t = len - 1; t >= 0; --t) {
-    int idx = tr[t];
-    float s = score[idx];
-    int o = (int)obs_id[idx];
-    float n = vis[o], valo = val[o], varo = var_[o];
-    float v_rel = v - s;
-    bool first = n == 0.0f;
-    float delta = v_rel - valo;
-    float val_new = first ? v_rel : valo + delta / (n + 1.0f);
-    float delta2 = v_rel - val_new;
-    float var_new = first ? var0 : varo + (delta * delta2 - varo) / (n + 1.0f);
-    vis[o] = n + 1.0f;
-    val[o] = val_new;
-    var_[o] = var_new;
-    v = gamma * v_rel + s;
+    float* vis, float* val, float* var_, bool loaded, float s, int o, float n,
+    float va, float vr, float v, float var0, float gamma, int lane) {
+  for (int top = len - 1; top >= 0; top -= 32) {
+    const int t = top - lane;
+    const bool live = t >= 0;
+    if (top != len - 1 || !loaded) {
+      const int idx = live ? tr[t] : 0;
+      s = live ? score[idx] : 0.0f;
+      o = live ? (int)obs_id[idx] : -1;
+      n = live ? vis[o] : 0.0f;
+      va = live ? val[o] : 0.0f;
+      vr = live ? var_[o] : 0.0f;
+    }
+    // 1. the serial v chain; every lane holds the same v
+    const int steps = min(top + 1, 32);
+    float v_rel = 0.0f;
+    for (int i = 0; i < steps; ++i) {
+      const float s_i = __shfl_sync(kFull, s, i);
+      const float d = v - s_i;
+      if (lane == i) v_rel = d;
+      v = gamma * d + s_i;
+    }
+    // 2. the statistics, a round per visit of the most repeated obs
+    const unsigned grp = __match_any_sync(kFull, live ? o : -1 - lane);
+    const unsigned before = grp & ((1u << lane) - 1u);  // earlier visits
+    const int prev = before ? 31 - __clz(before) : lane;
+    const unsigned rank = __popc(before);
+    const unsigned rounds = __reduce_max_sync(kFull, rank);
+    float n1, va1, vr1;
+    for (unsigned r = 0;; ++r) {
+      const bool first = n == 0.0f;
+      const float delta = v_rel - va;
+      va1 = first ? v_rel : va + delta / (n + 1.0f);
+      const float delta2 = v_rel - va1;
+      vr1 = first ? var0 : vr + (delta * delta2 - vr) / (n + 1.0f);
+      n1 = n + 1.0f;
+      if (r == rounds) break;
+      // the next visit of each obs starts from this round's result
+      const float pn = __shfl_sync(kFull, n1, prev);
+      const float pva = __shfl_sync(kFull, va1, prev);
+      const float pvr = __shfl_sync(kFull, vr1, prev);
+      if (rank == r + 1) {
+        n = pn;
+        va = pva;
+        vr = pvr;
+      }
+    }
+    if (live && lane == 31 - __clz(grp)) {  // the obs's last visit stores
+      vis[o] = n1;
+      val[o] = va1;
+      var_[o] = vr1;
+    }
+    __syncwarp();
   }
 }
 
 // ---------------------------------------------------------------------------
 // LP backup: seed the leaf's fresh unique children, average, then the
-// reverse Welford + gamma walk up the trace.
+// reverse Welford + gamma walk up the trace (warp_welford_walk).
 //
 // A warp per tree, kWalkWarps trees a block. What bounds it is the chain of
-// dependent loads: walked a level at a time, every level waits on its trace
-// entry, its node and its obs statistics in turn. So the loads are spent
-// once a chunk of up to 32 levels, lane l on level len-1-l of the first
-// chunk: lengths, then every level's trace entry, then its node's score/obs
-// (lanes 0-6 fetch the leaf's child base in the same round trip), then the
-// 7 children (lanes 0-6), then the statistics of the children and of every
-// level at once.
+// dependent loads, so the seed's loads share the round trips of the walk's
+// first chunk, lane l on level len-1-l: lengths, then every level's trace
+// entry, then its node's score/obs (lanes 0-6 fetch the leaf's child base
+// in the same round trip), then the 7 children (lanes 0-6), then the
+// statistics of the children and of every level at once.
 // Lanes 0-6 seed their fresh kept children, and every lane sums the kept
 // children in action order through a serial shuffle chain, so v and var0
 // are the plain version's floats, the same in every lane. A level whose obs
-// is a seeded child's takes the seeded statistics from that lane. The walk
-// itself is arithmetic only: at step i every lane evaluates the update on
-// its own level, lane i's result and next v are broadcast, and the lanes of
-// lane i's __match_any_sync obs group take lane i's new statistics, so a
-// trace holding one obs twice stays exact. The highest lane of each group
-// (the lowest level) then stores once per distinct obs. Longer traces run
-// further chunks, each loading after the previous chunk's stores and a
-// __syncwarp, so obs repeated across chunks see the earlier updates.
+// is a seeded child's takes the seeded statistics from that lane. Then the
+// walk runs from those loaded levels.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kWalkWarps * 32)
 lp_backup_kernel(const int* __restrict__ traces,
@@ -458,12 +511,12 @@ lp_backup_kernel(const int* __restrict__ traces,
   const float vnn = child ? v_nn[b * kActions + lane] : 0.0f;
   const float varnn = child ? var_nn[b * kActions + lane] : 0.0f;
   // the first chunk's levels; lane 0 always reads the leaf, tr[max(len-1, 0)]
-  int t = len - 1 - lane;
-  bool live = t >= 0;
-  int idx = live || lane == 0 ? tr[max(t, 0)] : 0;
+  const int t = len - 1 - lane;
+  const bool live = t >= 0;
+  const int idx = live || lane == 0 ? tr[max(t, 0)] : 0;
   const int leaf = __shfl_sync(kFull, idx, 0);
-  float s = live || lane == 0 ? score[idx] : 0.0f;
-  int o = live ? (int)obs_id[idx] : -1;
+  const float s = live || lane == 0 ? score[idx] : 0.0f;
+  const int o = live ? (int)obs_id[idx] : -1;
   const int c = child ? cbase[(size_t)b * N + leaf] : 0;
   const float leaf_score = __shfl_sync(kFull, s, 0);
   // the leaf's children, a child a lane (c is 0 off lanes 0-6)
@@ -526,114 +579,193 @@ lp_backup_kernel(const int* __restrict__ traces,
     }
   }
   const float kf = (float)max(__popc(kept_mask), 1);
-  float v = exp_ ? v_sum / kf : leaf_score;
+  const float v = exp_ ? v_sum / kf : leaf_score;
   const float var0 = exp_ ? var_sum * gamma * gamma / kf : 0.0f;
   __syncwarp();  // the seed's stores come before the walk's
 
-  for (int top = len - 1; top >= 0; top -= 32) {
-    if (top != len - 1) {  // a later chunk: load after the last one's stores
-      t = top - lane;
-      live = t >= 0;
-      idx = live ? tr[t] : 0;
-      s = live ? score[idx] : 0.0f;
-      o = live ? (int)obs_id[idx] : -1;
-      if (live) {
-        n = vis[o];
-        va = val[o];
-        vr = var_[o];
-      }
-    }
-    const unsigned grp = __match_any_sync(kFull, live ? o : -1 - lane);
-    const int steps = min(top + 1, 32);
-    for (int i = 0; i < steps; ++i) {
-      // every lane evaluates the update on its level; lane i's is the one
-      // this step takes (the next v first: it alone carries to the next step)
-      const float v_rel = v - s;
-      v = __shfl_sync(kFull, gamma * v_rel + s, i);
-      const bool first = n == 0.0f;
-      const float delta = v_rel - va;
-      const float val_new = first ? v_rel : va + delta / (n + 1.0f);
-      const float delta2 = v_rel - val_new;
-      const float var_new = first ? var0 : vr + (delta * delta2 - vr) / (n + 1.0f);
-      const float n_i = __shfl_sync(kFull, n + 1.0f, i);
-      const float va_i = __shfl_sync(kFull, val_new, i);
-      const float vr_i = __shfl_sync(kFull, var_new, i);
-      if (grp >> i & 1u) {  // lane i holds this lane's obs
-        n = n_i;
-        va = va_i;
-        vr = vr_i;
-      }
-    }
-    if (live && lane == 31 - __clz(grp)) {  // the obs's lowest level stores
-      vis[o] = n;
-      val[o] = va;
-      var_[o] = vr;
-    }
-    __syncwarp();
-  }
+  warp_welford_walk(tr, len, score, obs_id, vis, val, var_, true, s, o, n, va, vr,
+                    v, var0, gamma, lane);
 }
 
 // ---------------------------------------------------------------------------
 // backup: the reverse Welford + gamma walk from given (v0, var0) per lane
-// (the leaf and rollout evaluators' backup)
+// (the leaf and rollout evaluators' backup).
+//
+// A warp per tree, kWalkWarps trees a block: lengths, v0 and var0 in one
+// round trip, then warp_welford_walk, which fetches its chunks itself.
 // ---------------------------------------------------------------------------
-__global__ void backup_kernel(const int* __restrict__ traces,
-                              const int* __restrict__ lengths,
-                              const float* __restrict__ v0,
-                              const float* __restrict__ var0,
-                              const float* __restrict__ nstat, float* visits,
-                              float* values, float* vars, int B, int N, int M,
-                              int D, float gamma) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__global__ void __launch_bounds__(kWalkWarps * 32)
+backup_kernel(const int* __restrict__ traces, const int* __restrict__ lengths,
+              const float* __restrict__ v0, const float* __restrict__ var0,
+              const float* __restrict__ nstat, float* visits, float* values,
+              float* vars, int B, int N, int M, int D, float gamma) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp leaves together
   const float* score = nstat + (size_t)b * 2 * N;
-  reverse_welford_walk(traces + (size_t)b * D, lengths[b], score, score + N,
-                       visits + (size_t)b * M, values + (size_t)b * M,
-                       vars + (size_t)b * M, v0[b], var0[b], gamma);
+  warp_welford_walk(traces + (size_t)b * D, min(lengths[b], D), score, score + N,
+                    visits + (size_t)b * M, values + (size_t)b * M,
+                    vars + (size_t)b * M, false, 0.0f, -1, 0.0f, 0.0f, 0.0f,
+                    v0[b], var0[b], gamma, lane);
 }
 
 // ---------------------------------------------------------------------------
-// bench walk: the TPU micro-benchmark's 16-level Welford walk over (M, B)
-// statistics (lanes minor). A block owns 32 lanes: its 32 x 32 threads copy
-// the lanes' columns from the inputs to the outputs (each row of 32 lanes is
-// one coalesced 128-byte line), then warp 0 walks, one thread per lane,
-// reading and writing the statistic it indexes directly where the TPU
-// kernel used one-hot masks over all M rows.
+// bench walk: the TPU micro-benchmark's walk over (M, B) statistics, lanes
+// minor: copy the three statistics to fresh outputs, then each of B lanes
+// walks L levels, a Welford update of row idxs[t, b] of its column toward
+// acc a level, then acc *= 0.999.
+//
+// What bounds it is bytes: the copy moves 2 x 3 x M x B x 4 bytes, the
+// walk a few hundred bytes a lane. So the copy runs on every SM: block j
+// owns rows [j R, (j+1) R) of the three arrays, a flat run of R x B floats
+// in each, which its threads copy kBenchBatch 16-byte loads of each array
+// at a time before their stores (4-byte loads where B is not a multiple of
+// 4 or a pointer is not 16-byte aligned). A level's update touches only its
+// own entry (row, lane), and acc after t levels is the same in every lane,
+// so the walk splits by rows as well: each block walks, a thread a lane,
+// the levels whose row it owns, and needs no order with any other block. A
+// thread loads its lane's L idxs before the copy (one round trip), the
+// input statistics of its levels after it (independent loads, one round
+// trip), runs the updates in registers in level order, a level on a row
+// already walked taking the latest earlier level's result, and after the
+// __syncthreads that puts the block's copy first, stores the last result of
+// each distinct row once. The TPU kernel's one-hot masks over all M rows
+// become direct indexing.
 // ---------------------------------------------------------------------------
-constexpr int kBenchLanes = 32;
-constexpr int kBenchRows = 32;
+constexpr int kBenchThreads = 256;
+constexpr int kBenchBatch = 4;    // loads of each array a thread has in flight
+constexpr int kBenchLevels = 16;  // the script's walk depth, the kernel's most
+// the floats of each array a block copies, about: R = max(1, this / B)
+constexpr int kBenchRun = kBenchThreads * 4 * kBenchBatch;
 
-__global__ void __launch_bounds__(kBenchLanes * kBenchRows)
+// Copy n elements of three arrays, kBenchBatch loads a thread in flight.
+template <typename T>
+__device__ __forceinline__ void copy3(const T* __restrict__ a, const T* __restrict__ b,
+                                      const T* __restrict__ c, T* __restrict__ x,
+                                      T* __restrict__ y, T* __restrict__ z, size_t n) {
+  for (size_t i = threadIdx.x; i < n; i += kBenchThreads * kBenchBatch) {
+    T va[kBenchBatch], vb[kBenchBatch], vc[kBenchBatch];
+#pragma unroll
+    for (int k = 0; k < kBenchBatch; ++k) {
+      const size_t j = i + k * kBenchThreads;
+      if (j < n) {
+        va[k] = a[j];
+        vb[k] = b[j];
+        vc[k] = c[j];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBenchBatch; ++k) {
+      const size_t j = i + k * kBenchThreads;
+      if (j < n) {
+        x[j] = va[k];
+        y[j] = vb[k];
+        z[j] = vc[k];
+      }
+    }
+  }
+}
+
+// Lane b's walk over the rows [m0, m1): m[t] is level t's row (-1 past L).
+// Loads the inputs of the owned levels and leaves each level's result in
+// (n, a, r); returns the mask of the levels that store (the last level on
+// each owned row).
+__device__ __forceinline__ unsigned bench_lane(
+    const int (&m)[kBenchLevels], int b, int B, int m0, int m1,
+    const float* __restrict__ visit_in, const float* __restrict__ value_in,
+    const float* __restrict__ var_in, float (&n)[kBenchLevels],
+    float (&a)[kBenchLevels], float (&r)[kBenchLevels]) {
+  unsigned own = 0;
+#pragma unroll
+  for (int t = 0; t < kBenchLevels; ++t) {
+    n[t] = a[t] = r[t] = 0.0f;
+    if (m[t] >= m0 && m[t] < m1) {
+      own |= 1u << t;
+      const size_t i = (size_t)m[t] * B + b;
+      n[t] = visit_in[i];
+      a[t] = value_in[i];
+      r[t] = var_in[i];
+    }
+  }
+  unsigned store = 0;
+  float acc = 1.0f;
+#pragma unroll
+  for (int t = 0; t < kBenchLevels; ++t) {
+    if (own >> t & 1u) {
+      float vi = n[t], va = a[t], vr = r[t];
+#pragma unroll
+      for (int u = 0; u < t; ++u) {
+        if (m[u] == m[t]) {  // the row's latest earlier level, already walked
+          vi = n[u];
+          va = a[u];
+          vr = r[u];
+        }
+      }
+      const float x = acc - va;
+      n[t] = vi + 1.0f;
+      a[t] = va + x / (vi + 1.0f);
+      r[t] = vr + x * x / (vi + 1.0f);
+      bool last = true;
+#pragma unroll
+      for (int u = t + 1; u < kBenchLevels; ++u) last = last && m[u] != m[t];
+      if (last) store |= 1u << t;
+    }
+    acc = acc * 0.999f;
+  }
+  return store;
+}
+
+__device__ __forceinline__ void bench_store(
+    unsigned store, const int (&m)[kBenchLevels], int b, int B,
+    const float (&n)[kBenchLevels], const float (&a)[kBenchLevels],
+    const float (&r)[kBenchLevels], float* visit, float* value, float* var) {
+#pragma unroll
+  for (int t = 0; t < kBenchLevels; ++t) {
+    if (store >> t & 1u) {
+      const size_t i = (size_t)m[t] * B + b;
+      visit[i] = n[t];
+      value[i] = a[t];
+      var[i] = r[t];
+    }
+  }
+}
+
+__device__ __forceinline__ void bench_rows(const int* __restrict__ idxs, int b, int B,
+                                           int L, int (&m)[kBenchLevels]) {
+#pragma unroll
+  for (int t = 0; t < kBenchLevels; ++t) m[t] = t < L ? idxs[t * B + b] : -1;
+}
+
+__global__ void __launch_bounds__(kBenchThreads)
 bench_walk_kernel(const int* __restrict__ idxs,
                   const float* __restrict__ visit_in,
                   const float* __restrict__ value_in,
                   const float* __restrict__ var_in, float* visit,
-                  float* value, float* var, int B, int M, int L) {
-  const int tx = threadIdx.x % kBenchLanes, ty = threadIdx.x / kBenchLanes;
-  const int b = blockIdx.x * kBenchLanes + tx;
-  if (b < B) {
-    for (int m = ty; m < M; m += kBenchRows) {
-      const size_t i = (size_t)m * B + b;
-      visit[i] = visit_in[i];
-      value[i] = value_in[i];
-      var[i] = var_in[i];
-    }
-  }
-  __syncthreads();
-  if (ty != 0 || b >= B) return;
-  float acc = 1.0f;
-  for (int t = 0; t < L; ++t) {
-    const size_t i = (size_t)idxs[t * B + b] * B + b;
-    const float vi = visit[i], va = value[i], vr = var[i];
-    const float x = acc - va;
-    visit[i] = vi + 1.0f;
-    value[i] = va + x / (vi + 1.0f);
-    var[i] = vr + x * x / (vi + 1.0f);
-    acc = acc * 0.999f;
+                  float* value, float* var, int B, int M, int L, int R,
+                  bool vec) {
+  const int m0 = blockIdx.x * R, m1 = min(M, m0 + R);
+  int m[kBenchLevels];
+  float n[kBenchLevels], a[kBenchLevels], r[kBenchLevels];
+  int b = threadIdx.x;  // the thread's first lane
+  if (b < B) bench_rows(idxs, b, B, L, m);
+  const size_t lo = (size_t)m0 * B, cnt = (size_t)(m1 - m0) * B;
+  if (vec)
+    copy3((const float4*)(visit_in + lo), (const float4*)(value_in + lo),
+          (const float4*)(var_in + lo), (float4*)(visit + lo), (float4*)(value + lo),
+          (float4*)(var + lo), cnt / 4);
+  else
+    copy3(visit_in + lo, value_in + lo, var_in + lo, visit + lo, value + lo, var + lo,
+          cnt);
+  unsigned store = 0;
+  if (b < B) store = bench_lane(m, b, B, m0, m1, visit_in, value_in, var_in, n, a, r);
+  __syncthreads();  // the block's copy of its rows lands before the walk's
+  if (b < B) bench_store(store, m, b, B, n, a, r, visit, value, var);
+  for (b += kBenchThreads; b < B; b += kBenchThreads) {  // lanes past the block
+    bench_rows(idxs, b, B, L, m);
+    store = bench_lane(m, b, B, m0, m1, visit_in, value_in, var_in, n, a, r);
+    bench_store(store, m, b, B, n, a, r, visit, value, var);
   }
 }
-
-inline int blocks(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace tmt
 
@@ -689,21 +821,30 @@ int backup_walk(const void* traces, const void* lengths, const void* v0,
                 const void* var0, const void* nstat, void* visits,
                 void* values, void* vars, int B, int N, int M, int D,
                 float gamma, void* stream) {
-  backup_kernel<<<blocks(B), kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (B + kWalkWarps - 1) / kWalkWarps;
+  backup_kernel<<<grid, kWalkWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int*)traces, (const int*)lengths, (const float*)v0,
       (const float*)var0, (const float*)nstat, (float*)visits,
       (float*)values, (float*)vars, B, N, M, D, gamma);
   return (int)cudaGetLastError();
 }
 
-// idxs (L, B) int32 in [0, M); stats and outputs (M, B) float32.
+// idxs (L, B) int32 in [0, M), L <= 16; stats and outputs (M, B) float32.
 int bench_walk(const void* idxs, const void* visit_in, const void* value_in,
                const void* var_in, void* visit, void* value, void* var, int B,
                int M, int L, void* stream) {
-  const int grid = (B + kBenchLanes - 1) / kBenchLanes;
-  bench_walk_kernel<<<grid, kBenchLanes * kBenchRows, 0, (cudaStream_t)stream>>>(
+  if (L > kBenchLevels) return (int)cudaErrorInvalidValue;
+  const int R = max(1, kBenchRun / max(B, 1));
+  const int grid = (M + R - 1) / R;
+  // 16-byte copies need B % 4 == 0 and every array 16-byte aligned
+  const uintptr_t ptrs = (uintptr_t)visit_in | (uintptr_t)value_in |
+                         (uintptr_t)var_in | (uintptr_t)visit | (uintptr_t)value |
+                         (uintptr_t)var;
+  const bool vec = B % 4 == 0 && ptrs % 16 == 0;
+  bench_walk_kernel<<<grid, kBenchThreads, 0, (cudaStream_t)stream>>>(
       (const int*)idxs, (const float*)visit_in, (const float*)value_in,
-      (const float*)var_in, (float*)visit, (float*)value, (float*)var, B, M, L);
+      (const float*)var_in, (float*)visit, (float*)value, (float*)var, B, M, L, R,
+      vec);
   return (int)cudaGetLastError();
 }
 

@@ -19,9 +19,16 @@ it exists to time a walk.
 
 What bounds the kernel on the H100: bytes. The function reads the three
 (M, B) statistics and writes them back whole (12 bytes an entry each way);
-the walk itself is 16 dependent levels per lane. The kernel copies a lane
-block's columns with all its threads, then walks one thread per lane, with
-direct indexing where the TPU kernel built one-hot masks over all M rows.
+the walk itself is 16 dependent levels per lane. So the copy runs on every
+SM: each block copies the rows it owns, 16 bytes a load where B is a
+multiple of 4 and the arrays are 16-byte aligned. A level's update touches
+only its own (row, lane) entry, so each block also walks, a thread a lane,
+the levels whose rows it owns: the lane's 16 idxs in one round trip, their
+input statistics in a second, the updates in registers (a level on a row
+already walked takes that level's result), and after the block's copy of
+those rows one store for each distinct row. The TPU kernel's one-hot masks
+over all M rows become direct indexing. The kernel walks at most LEVELS
+levels; the plain version takes any number.
 """
 
 from __future__ import annotations
@@ -72,6 +79,8 @@ def bench_walk(idxs, visit, value, var):
     M = visit.shape[0]
     if idxs.dtype != torch.int32 or not idxs.is_contiguous():
         raise ValueError(f"idxs: want contiguous int32 (L, B), got {idxs.dtype}")
+    if L > LEVELS:
+        raise ValueError(f"bench_walk kernel: at most {LEVELS} levels, got {L}")
     for name, x in (("visit", visit), ("value", value), ("var", var)):
         if x.dtype != torch.float32 or tuple(x.shape) != (M, B) or not x.is_contiguous():
             raise ValueError(f"{name}: want contiguous float32 {(M, B)}, got "

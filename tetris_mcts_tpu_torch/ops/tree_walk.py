@@ -21,15 +21,19 @@ walk of dependent loads (child base -> 7 children -> their statistics, one
 level after another; a probe slot, then the next), so a tree's time is a
 chain of memory latencies and of the serial work between them, and the
 bytes a walk touches (about 0.2 KB a level) are far below what the card's
-3.35 TB/s could move. So select, insert and the LP backup run a warp per
-tree, two trees a block, with the 7 children in lanes, to cut the number of
-dependent round trips: select loads a level in two (and steps the env in
-shared memory, a board row a lane); insert resolves a probe round of all 7
-keys in one, settling contending claims in registers; the LP backup loads
-up to 32 levels of its trace at once, a level a lane, and walks them by
-shuffles, so it pays its round trips once a chunk of 32 levels, not once a
-level (see `csrc/tree_walk.cu`). `backup` still runs a thread per tree.
-Levels stay strictly sequential; the ~0.5 MB of tree state per lane stays
+3.35 TB/s could move. So every walk runs a warp per tree, two trees a
+block, to cut the number of dependent round trips: select loads a level of
+its 7 children (in lanes) in two (and steps the env in shared memory, a
+board row a lane); insert resolves a probe round of all 7 keys in one,
+settling contending claims in registers; both backups share one walk that
+loads up to 32 levels of the trace at once, a level a lane, so it pays its
+round trips once a chunk of 32 levels, not once a level, then runs the
+serial v chain by shuffles and the statistics' updates of all the chunk's
+levels at once, in as many rounds as its most repeated obs has visits (see
+`csrc/tree_walk.cu`). The LP backup fetches the walk's first chunk together
+with the leaf's children, which it seeds first.
+Levels keep their order: every update sees the earlier levels' updates of
+its obs. The ~0.5 MB of tree state per lane stays
 in device memory and the hot lines in L2 (34 MB at B=64, within the 50 MB
 L2). Every device loop is bounded: select by D levels, insert by
 PROBE_ROUNDS rounds, the backups by the trace length (<= D). Each kernel
