@@ -44,7 +44,17 @@ of the JAX package. Phases, each printing its elapsed seconds:
    with the kernel's device time a launch (torch.profiler; for the forward
    both of its kernels), the time of a call through its wrapper and of its
    plain version (CUDA events), a bound, and for the forward the device
-   time of the `VVNet` forward.
+   time of the `VVNet` forward;
+10. online: ValueSimLP self-play with training at the same width (the CLI's
+   online defaults: min_visits 25, memory 100000, growth 5000, a session
+   every 5000 new rows, minibatch 128, a validation every 100 steps; cut:
+   at most 2000 steps a session) until a session has run and 5 moves more
+   (at most 80 moves): select, insert and LP backup must launch moves x
+   sims times, and sims times a move after the session; the net's outputs
+   on fixed boards must change; then one train step on the card against
+   the same step on the CPU (TF32 switched on around it, so the step must
+   pin it off), the device time and launches of a train step and of a
+   move's harvest and store, and a save/load round trip.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints a JSON `kernels` line, the card's name and power
@@ -54,13 +64,18 @@ without the last line; a watchdog ends a hang with a traceback.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
+import os
 import subprocess
 import sys
 import time
 
 WATCHDOG_S = 600
+ONLINE_MAX_ITERS = 2000  # the online phase's cut of train_max_iters (CLI: 50000)
+ONLINE_MOVE_CAP = 80
+PROFILER_SESSIONS = 3  # device_ms's tries; each kernel row reports how many it took
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 FP32_FLOPS = 67e12         # H100 SXM published float32 rate outside the tensor cores
 MOVES = 20
@@ -139,38 +154,48 @@ def cuda_ms(fn, reps, setup=None):
 
 
 def device_ms(fn, reps, kernel, setup=None, parts=None):
-    """Device time of one call's launches of `kernel` (its qualified name in
-    csrc/, e.g. "tmt::select_kernel", or a tuple of names for a call that
+    """(ms, sessions): the device time of one call's launches of `kernel`
+    (its qualified name in csrc/, e.g. "tmt::select_kernel", or a tuple of
+    names for a call that
     launches several kernels: their mean times a launch are summed): fn() is
     called reps times under torch.profiler, and the device-side time of the
     launches the profiler recorded is averaged. The host's time between
     launches is not counted. The profiler can miss launches at the start of a
-    session (1 to 3 of 20 seen on the H100); the mean is over the launches it
-    recorded, and fewer than half of reps, or more than reps, raise. Each
-    kernel's own mean goes into the dict `parts` when one is given."""
+    session (1 to 3 of 20 seen on the H100), and once missed all 20 of a
+    session; the mean is over the launches it recorded. A session that
+    recorded fewer than half of reps, or more than reps, is measured again,
+    up to PROFILER_SESSIONS sessions; then it raises, naming what the profiler
+    saw. `sessions` is how many it took. Each kernel's own mean goes into the
+    dict `parts` when one is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    args = [setup() if setup else () for _ in range(reps)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for a in args:
-            fn(*a)
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    for session in range(PROFILER_SESSIONS):
+        args = [setup() if setup else () for _ in range(reps)]
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in args:
+                fn(*a)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        rows = {name: [e for e in events  # "name(" or a template's "name<"
+                       if f"{name}(" in e.key or f"{name}<" in e.key] for name in names}
+        seen = {name: sum(e.count for e in r) for name, r in rows.items()}
+        if all(reps // 2 <= n <= reps for n in seen.values()):
+            break
+        say(f"device_ms: profiler session {session + 1} saw {seen} launches of {reps}; "
+            f"its device events: {[(e.key[:60], e.count) for e in events[:4]]}")
+    else:
+        raise AssertionError(f"{names}: profiler saw {seen} launches, want {reps}")
     total = 0.0
-    for name in (kernel,) if isinstance(kernel, str) else kernel:
-        rows = [e for e in prof.key_averages()  # "name(" or a template's "name<"
-                if e.device_type == DeviceType.CUDA
-                and (f"{name}(" in e.key or f"{name}<" in e.key)]
-        n = sum(e.count for e in rows)
-        if not reps // 2 <= n <= reps:
-            raise AssertionError(f"{name}: profiler saw {n} launches, want {reps}")
-        ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
+    for name in names:
+        ms = sum(e.self_device_time_total for e in rows[name]) / 1e3 / seen[name]
         if parts is not None:
             parts[name] = ms
         total += ms
-    return total
+    return total, session + 1
 
 
 def stub_evaluator(x):
@@ -289,8 +314,8 @@ def bound_vv(n, net):
 
 
 def device_ms_all(fn, reps):
-    """Device time of all kernels fn() launches, a call (torch.profiler,
-    device-side events only), over reps calls."""
+    """(device ms, kernel launches) of one fn() call: all the kernels it
+    launches (torch.profiler, device-side events only), over reps calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -300,8 +325,9 @@ def device_ms_all(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / reps,
+            sum(e.count for e in rows) / reps)
 
 
 def reset_launches():
@@ -422,7 +448,7 @@ def main() -> int:
 
     # ---- 4. main path (lp) --------------------------------------------------
     t = time.perf_counter()
-    cfg = SelfPlayConfig()  # the CLI's default width
+    cfg = SelfPlayConfig(benchmark=True)  # the CLI's default width, frozen net
     episodes = []
     driver, wall, launches = drive(torch, cfg, MOVES, episodes.append)
     want = MOVES * cfg.sims
@@ -541,18 +567,18 @@ def main() -> int:
         gum, rnd = mcts.TorchPlanes(123, "cuda", tcfg.policy)(B, D)
         out_k = tree_walk.select_walk(tt, gum, rnd, tcfg)
         sel = lambda: tree_walk.select_walk(tt, gum, rnd, tcfg)
-        sel_ms[label] = (device_ms(sel, 20, "tmt::select_kernel"), cuda_ms(sel, 20),
+        sel_ms[label] = (*device_ms(sel, 20, "tmt::select_kernel"), cuda_ms(sel, 20),
                          cuda_ms(lambda: tree_walk.select_walk_plain(tt, gum, rnd, tcfg), 2),
                          out_k)
         say(f"kernel select_walk on the {label} trees: {sel_ms[label][0]:.4f} ms device a "
-            f"launch ({sel_ms[label][1]:.4f} ms a call with the wrapper), "
-            f"{sel_ms[label][2]:.1f} ms plain; mean length "
+            f"launch ({sel_ms[label][2]:.4f} ms a call with the wrapper), "
+            f"{sel_ms[label][3]:.1f} ms plain; mean length "
             f"{out_k[1].float().mean().item():.1f}")
-    ms_k, ev_k, ms_p, out_k = sel_ms["lp"]
+    ms_k, tries, ev_k, ms_p, out_k = sel_ms["lp"]
     traces, lengths, leafs, _, packed7, sc7, end7i = out_k
     rows.append(("select_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:424",
                  launches, 0.0, ms_k, ev_k, ms_p,
-                 bytes_select(lengths, D, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
+                 bytes_select(lengths, D, B) / HBM_BYTES_PER_S * 1e3, "bytes", None, tries))
     say(f"kernel select_walk (clt, lp trees): max diff 0; {launches['select_walk']} launches "
         f"on the lp path, {leaf_launches['select_walk']} on the leaf path")
 
@@ -569,13 +595,13 @@ def main() -> int:
     n_new = int((t_k.n_obs - trees.n_obs).sum().item())
     ins_k = lambda tt: tree_walk.insert_obs7(tt, packed7, end7, can, tcfg)
     fresh = lambda: (trees.clone(),)
-    ms_k = device_ms(ins_k, 20, "tmt::insert7_kernel", setup=fresh)
+    ms_k, tries = device_ms(ins_k, 20, "tmt::insert7_kernel", setup=fresh)
     ev_k = cuda_ms(ins_k, 20, setup=fresh)
     ms_p = cuda_ms(lambda tt: T.insert_obs7_batched(tt, packed7, end7, can, tcfg), 2,
                    setup=fresh)
     rows.append(("insert7_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:804",
                  launches, 0.0, ms_k, ev_k, ms_p,
-                 bytes_insert(n_new, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
+                 bytes_insert(n_new, B) / HBM_BYTES_PER_S * 1e3, "bytes", None, tries))
     say(f"kernel insert7_walk: max diff 0 (obs7 and tables equal to plain; "
         f"{int(can.sum())} lanes expand, {n_new} fresh ids); {ms_k:.4f} ms device a "
         f"launch ({ev_k:.4f} ms a call with the wrapper), {ms_p:.1f} ms plain; "
@@ -592,13 +618,13 @@ def main() -> int:
               close("lp vars", l_k.vars_, l_p.vars_, False))
     lp_k = lambda tt: tree_walk.lp_backup(tt, traces, lengths, v, var, can, tcfg)
     fresh = lambda: (t_k.clone(),)
-    ms_k = device_ms(lp_k, 20, "tmt::lp_backup_kernel", setup=fresh)
+    ms_k, tries = device_ms(lp_k, 20, "tmt::lp_backup_kernel", setup=fresh)
     ev_k = cuda_ms(lp_k, 20, setup=fresh)
     ms_p = cuda_ms(lambda tt: tree_walk.lp_backup_plain(tt, traces, lengths, v, var, can,
                                                         tcfg), 2, setup=fresh)
     rows.append(("lp_backup_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:1091",
                  launches, err, ms_k, ev_k, ms_p,
-                 bytes_lp(lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
+                 bytes_lp(lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None, tries))
     say(f"kernel lp_backup_walk: visits equal to plain, values/vars max abs err "
         f"{err:.3e}; {ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call with the "
         f"wrapper), {ms_p:.1f} ms plain; "
@@ -623,13 +649,13 @@ def main() -> int:
               for f in ("visits", "values", "vars_"))
     bk = lambda tt: tree_walk.backup(tt, l_traces, l_lengths, v0, lvar, tcfg)
     fresh = lambda: (leaf_trees.clone(),)
-    ms_k = device_ms(bk, 20, "tmt::backup_kernel", setup=fresh)
+    ms_k, tries = device_ms(bk, 20, "tmt::backup_kernel", setup=fresh)
     ev_k = cuda_ms(bk, 20, setup=fresh)
     ms_p = cuda_ms(lambda tt: T.backup_batched(tt, l_traces, l_lengths, v0, lvar, tcfg),
                    2, setup=fresh)
     rows.append(("backup_walk", "tree_walk.cu", "tetris_mcts_tpu/ops/tree_walk.py:161",
                  leaf_launches, err, ms_k, ev_k, ms_p,
-                 bytes_backup(l_lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None))
+                 bytes_backup(l_lengths, B) / HBM_BYTES_PER_S * 1e3, "bytes", None, tries))
     say(f"kernel backup_walk: visits, values and vars equal to plain; "
         f"{ms_k:.4f} ms device a launch ({ev_k:.4f} ms a call with the wrapper), "
         f"{ms_p:.1f} ms plain; {leaf_launches['backup_walk']} launches on the leaf "
@@ -658,13 +684,13 @@ def main() -> int:
                         1e-2))
         fk = lambda: vv_forward.vv_forward_packed(net, ub, lb, x)
         split = {}
-        ms_k = device_ms(fk, 20, ("tmt_vv::vv_conv_kernel", "tmt_vv::vv_fc_kernel"),
-                         parts=split)
+        ms_k, tries = device_ms(fk, 20, ("tmt_vv::vv_conv_kernel", "tmt_vv::vv_fc_kernel"),
+                                parts=split)
         ev_k = cuda_ms(fk, 20)
         ms_p = cuda_ms(lambda: vv_forward.vv_forward_packed_plain(net, ub, lb, x), 5)
-        ms_lib = device_ms_all(lambda: model.apply_fn()(imgs), 20)
+        ms_lib, _ = device_ms_all(lambda: model.apply_fn()(imgs), 20)
         bound, bound_by = bound_vv(x.shape[0], net)
-        fwd_rows[k] = (err, ms_k, ev_k, ms_p, bound, bound_by, ms_lib)
+        fwd_rows[k] = (err, ms_k, ev_k, ms_p, bound, bound_by, ms_lib, tries)
         say(f"kernel vv_forward on {x.shape[0]} {k}: max abs err {err:.3e} against "
             f"plain and VVNet; {ms_k:.4f} ms device a call (conv ladder "
             f"{split['tmt_vv::vv_conv_kernel']:.4f}, FC {split['tmt_vv::vv_fc_kernel']:.4f}; "
@@ -680,15 +706,18 @@ def main() -> int:
     for n, a, b in zip(("visit", "value", "var"), bw_out, bw_plain):
         close(f"bench_walk {n}", a, b, True)
     bwk = lambda: bench_walk.bench_walk(bw_idxs, *bw_stats)
-    ms_k = device_ms(bwk, 20, "tmt::bench_walk_kernel")
+    ms_k, tries = device_ms(bwk, 20, "tmt::bench_walk_kernel")
     ev_k = cuda_ms(bwk, 20)
     ms_p = cuda_ms(lambda: bench_walk.bench_walk_plain(bw_idxs, *bw_stats), 2)
     bound = bytes_bench_walk(bench_walk.LEVELS, bw_B, bw_M) / HBM_BYTES_PER_S * 1e3
     rows.append(("bench_walk", "tree_walk.cu", "scripts/microbench_pallas_walk.py:36",
-                 bw_launches, 0.0, ms_k, ev_k, ms_p, bound, "bytes", None))
+                 bw_launches, 0.0, ms_k, ev_k, ms_p, bound, "bytes", None, tries))
     say(f"kernel bench_walk: equal to plain; {ms_k:.4f} ms device a launch ({ev_k:.4f} ms "
         f"a call with the wrapper), {ms_p:.3f} ms plain; bound {bound:.4f} ms (bytes)")
     say(f"phase kernels took {time.perf_counter() - t:.1f}s")
+
+    # ---- 10. online: self-play with training at the CLI's width --------------
+    phase_online(torch, smi)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -696,14 +725,230 @@ def main() -> int:
         "replaces": replaces, "launches": counts[name], "max_abs_err": err,
         "ms": ms_k, "call_ms": ev_k, "plain_ms": ms_p,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": ms_lib,
+        "profiler_sessions": tries,
     } for (name, src, replaces, counts, err, ms_k, ev_k, ms_p, bound, bound_by,
-           ms_lib) in rows]
+           ms_lib, tries) in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0
+
+
+def phase_online(torch, smi):
+    """ValueSimLP self-play with training at the CLI's width, through
+    `SelfPlayDriver` in online mode; then the train step and the store
+    measured and checked on their own."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.models.nets import tf32_off
+    from tetris_mcts_tpu_torch.obs.metrics import MetricsReader, MetricsWriter
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, SelfPlayDriver
+    from tetris_mcts_tpu_torch.search import mcts
+    from tetris_mcts_tpu_torch.search import tree as T
+    from tetris_mcts_tpu_torch.train.trainer import VVModel
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_train_cases import agreeing_minibatch, min_nonzero_preactivation
+
+    t = time.perf_counter()
+    cfg = SelfPlayConfig(train_max_iters=ONLINE_MAX_ITERS)
+    logs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "metrics.jsonl")
+        metrics = MetricsWriter(mpath)
+        driver = SelfPlayDriver(cfg, device="cuda", log=logs.append, metrics=metrics)
+        model = driver.model
+        fixed = torch.as_tensor(np.random.RandomState(11).randint(-1, 2, (64, 1, 20, 10)),
+                                dtype=torch.float32, device="cuda")
+        before = model.apply_fn()(fixed)
+        totals, session_move, at_session = [], None, None
+        reset_launches()
+        t_run = time.perf_counter()
+        while len(totals) < ONLINE_MOVE_CAP:
+            driver.step()
+            totals.append(driver._prev_total)
+            if session_move is None and driver.n_trains:
+                session_move, at_session = len(totals), read_launches()
+            if session_move is not None and len(totals) - session_move >= 5:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = read_launches()
+        metrics.close()
+        reader = MetricsReader(mpath)
+        reader.poll()
+        sessions = reader.of_kind("train_session")
+        if session_move is None:
+            raise AssertionError(f"online path: no training session in {len(totals)} moves "
+                                 f"({totals[-1]} rows harvested)")
+        moves = len(totals)
+        want = moves * cfg.sims
+        check_launches("online path", launches,
+                       {"select_walk": want, "insert7_walk": want, "lp_backup_walk": want})
+        after_moves = moves - session_move
+        for k in ("select_walk", "insert7_walk", "lp_backup_walk"):
+            if launches[k] - at_session[k] != after_moves * cfg.sims:
+                raise AssertionError(f"online path: {k} launched "
+                                     f"{launches[k] - at_session[k]} times in the "
+                                     f"{after_moves} moves after the session")
+        change = max(float((a - b).abs().max()) for a, b in zip(model.apply_fn()(fixed), before))
+        if not change > 0:
+            raise AssertionError("online path: the net's outputs did not change in training")
+        st = driver.last_stats
+        for name, x in st._asdict().items():
+            if x.is_floating_point() and not bool(torch.isfinite(x[x > -torch.inf]).all()):
+                raise AssertionError(f"online path: non-finite {name}")
+        per_move = np.diff([0] + totals)
+        harvest_moves = int((per_move > 0).sum())
+        zero_grad = any(ln.startswith("Zero-gradient") for ln in logs)
+        say(f"phase online (lp, training): {moves} moves x {cfg.sims} sims at B={cfg.batch} "
+            f"in {wall:.2f}s, the first session after move {session_move}; launches "
+            f"{launches}, {after_moves * cfg.sims} of each walk after the session; "
+            f"{driver.episodes} episodes ({smi})")
+        say(f"  rows harvested: {totals[-1]} in {moves} moves ({totals[-1] / moves:.1f} a move; "
+            f"{harvest_moves} moves harvested, {totals[-1] / max(harvest_moves, 1):.1f} rows "
+            f"each); ubound now {[round(float(x), 3) for x in model.ubound]}")
+        for e in sessions:
+            early = (e["iters"] < cfg.train_max_iters and not zero_grad)
+            say(f"  session {e['n']}: {e['rows']} rows, {e['iters']} iterations "
+                f"(cap {cfg.train_max_iters}; early stopping "
+                f"{'fired' if early else 'did not fire'}"
+                f"{'; zero-gradient guard fired' if zero_grad else ''}), {e['seconds']:.2f}s, "
+                f"{e['iters'] / e['seconds']:.1f} iterations/s, loss train {e['loss_train']:.4f} "
+                f"val {e['loss_val']:.4f}")
+        say(f"  net outputs on 64 fixed boards moved by up to {change:.4f} after training")
+
+        # the train step on its own: device time and launches at batch 128
+        n_rows = min(4096, driver.replay.count.item())
+        newest = (np.arange(driver.replay.idx.item() - n_rows, driver.replay.idx.item())
+                  % cfg.memory_size)
+        states, value, var, weight = driver._training_columns(newest)
+        cols = [states.float()[:, None], value, var, weight / weight.mean()]
+        sd = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+        mu, nu, count = model.opt.state()
+
+        def copy_of(dev):
+            m = VVModel(seed=cfg.seed, device=dev)
+            m.load_state({k: v.to(dev) for k, v in sd.items()}, model.ubound.to(dev),
+                         model.lbound.to(dev))
+            m.opt.load([x.to(dev) for x in mu], [x.to(dev) for x in nu], count)
+            return m
+
+        prof_m = copy_of("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        idxs = [torch.randint(0, n_rows, (cfg.train_batch,), generator=gen, device="cuda")
+                for _ in range(23)]
+        it = iter(idxs)
+        step = lambda: prof_m.train_step(cols, next(it))
+        for _ in range(3):
+            step()
+        step_ms, step_launches = device_ms_all(step, 20)
+        it = iter(idxs[3:])
+        step_call_ms = cuda_ms(step, 20)
+        # its parts: the forward (with the loss), forward + backward
+        batch = tuple(c[idxs[0]] for c in cols)
+
+        def forward():
+            with tf32_off():
+                prof_m.per_sample_loss(*batch).mean()
+
+        fwd_ms, fwd_n = device_ms_all(forward, 20)
+        fb_ms, fb_n = device_ms_all(lambda: prof_m.loss_and_grads(batch), 20)
+        say(f"  train_step at batch {cfg.train_batch}: {step_ms:.4f} ms device, "
+            f"{step_launches:.0f} kernel launches, {step_call_ms:.4f} ms a call between CUDA "
+            f"events ({smi}); forward + loss {fwd_ms:.4f} ms ({fwd_n:.0f} launches), backward "
+            f"{fb_ms - fwd_ms:.4f} ms ({fb_n - fwd_n:.0f}), the gather, grad norm and Yogi "
+            f"{step_ms - fb_ms:.4f} ms ({step_launches - fb_n:.0f})")
+
+        # a move's harvest and store, with every lane harvested (the masked
+        # store does the same device work whatever the trigger)
+        ring = mcts.init_replay(cfg.memory_size, "cuda")
+        every = torch.ones(cfg.batch, dtype=torch.bool, device="cuda")
+
+        def harvest_store():
+            packed, val, vr, w, mask = T.harvest(driver.trees, cfg.min_visits_store)
+            mcts.replay_add(ring, packed, val, vr, w, mask & every[:, None])
+
+        harvest_store()
+        hs_ms, hs_launches = device_ms_all(harvest_store, 20)
+        say(f"  harvest + store add at B={cfg.batch}, M={cfg.max_obs}: {hs_ms:.4f} ms device a "
+            f"move, {hs_launches:.0f} kernel launches ({smi})")
+
+        # one step on the card against the CPU, TF32 switched on around it
+        cpu_m, gpu_m = copy_of("cpu"), copy_of("cuda")
+        cols_cpu = [c.cpu() for c in cols]
+        # a minibatch on which both devices put every ReLU input on the same
+        # side of zero (tests/torch_train_cases.py)
+        idx, draws, crossed = agreeing_minibatch(cpu_m.net, gpu_m.net, cols_cpu[0],
+                                                 cfg.train_batch)
+        low = min_nonzero_preactivation(cpu_m.net, cols_cpu[0][idx])
+        prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            lc, _, gc = cpu_m.loss_and_grads(tuple(c[idx] for c in cols_cpu))
+            lg, _, gg = gpu_m.loss_and_grads(tuple(c[idx.cuda()] for c in cols))
+            grad_err = max(close(f"train step grad {n}", a, b, False, 1e-4,
+                                 1e-5 * float(b.abs().max()))
+                           for n, a, b in zip(cpu_m.names, gg, gc))
+            loss_err = close("train step loss", lg, lc, False, 1e-5, 0.0)
+            cpu_m.train_step(cols_cpu, idx)
+            gpu_m.train_step(cols, idx.cuda())
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        param_err = max(close(f"train step param {n}", a, b, False, 1e-4, 1e-6)
+                        for n, a, b in zip(cpu_m.names, gpu_m.net.parameters(),
+                                           cpu_m.net.parameters()))
+        # The control: the same gradients with the step's pin removed (the
+        # forward keeps its own), so autograd runs the backward in TF32. It
+        # must miss the tolerance above, or that check could not fail.
+        from tetris_mcts_tpu_torch.train import trainer as TR
+
+        pin = TR.tf32_off
+        TR.tf32_off = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, _, gt = copy_of("cuda").loss_and_grads(tuple(c[idx.cuda()] for c in cols))
+        finally:
+            TR.tf32_off = pin
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        ctl_err, ctl_over = 0.0, 0.0
+        for a, b in zip(gt, gc):
+            d = (a.cpu().double() - b.double()).abs()
+            tol = 1e-4 * b.double().abs() + 1e-5 * float(b.abs().max())
+            ctl_err, ctl_over = max(ctl_err, float(d.max())), max(ctl_over, float((d / tol).max()))
+        say(f"  TF32 control (the step's pin removed, the backward in TF32): grads max abs err "
+            f"{ctl_err:.3e}, {ctl_over:.1f}x the tolerance at its worst entry")
+        if not ctl_over > 1.0:
+            raise AssertionError("TF32 control: a TF32 backward stays within the train step's "
+                                 "tolerance, so the card-vs-CPU check cannot catch it")
+        say(f"  train_step on the card vs the CPU (TF32 switched on around it): loss err "
+            f"{loss_err:.3e}, grads max abs err {grad_err:.3e} (rtol 1e-4, atol 1e-5 x each "
+            f"tensor's largest), params after the Yogi step {param_err:.3e} (rtol 1e-4, "
+            f"atol 1e-6); minibatch draw {draws} ({crossed} ReLU inputs on opposite sides of zero "
+            f"in the draws before), nearest pre-activation {low:.2e}")
+
+        # save / load round trip
+        path = os.path.join(tmp, "model.pt")
+        model.save(path)
+        back = VVModel(seed=cfg.seed + 1, device="cuda")
+        if not back.load(path):
+            raise AssertionError("online: the saved checkpoint did not load")
+        for a, b in zip(model.net.parameters(), back.net.parameters()):
+            close("checkpoint params", a, b, True)
+        for a, b in zip(model.opt.mu + model.opt.nu, back.opt.mu + back.opt.nu):
+            close("checkpoint Yogi moments", a, b, True)
+        if back.opt.count != model.opt.count:
+            raise AssertionError("checkpoint: Yogi count differs")
+        for a, b in zip(model.apply_fn()(fixed), back.apply_fn()(fixed)):
+            close("checkpoint outputs", a, b, True)
+        say(f"  checkpoint round trip: params, Yogi state ({back.opt.count} steps), bounds and "
+            f"outputs equal ({os.path.getsize(path)} bytes)")
+    say(f"phase online took {time.perf_counter() - t:.1f}s")
 
 
 def walk_edges(torch, tree_walk, T, B=67):

@@ -23,7 +23,9 @@ a load where B is a multiple of 4: it is checked at B = 1, 67 and 256 and
 at M = 4 (every lane revisits rows) and 2048, every output with
 torch.equal. The forward picks its boards per block from n and tiles the
 FC over 16 boards: it is checked from 1 to 1792 boards, across tile and
-block edges.
+block edges. Online self-play adds two: one VV train step on the card
+against the CPU (TF32 off through the backward), and six store moves whose
+replay ring and trees must equal the CPU's.
 """
 
 import numpy as np
@@ -291,3 +293,85 @@ def test_vvnet_on_card_matches_cpu():
     v_g, var_g = VVModel(seed=5, device="cuda").apply_fn()(x.cuda())
     torch.testing.assert_close(v_g.cpu(), v_c, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(var_g.cpu(), var_c, rtol=1e-4, atol=1e-2)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One VV train step (forward, backward, Yogi) on the card against the
+    same step on the CPU, with PyTorch's TF32 switches turned on around
+    it: the step pins TF32 off for the backward too, so the gradients
+    agree within rtol 1e-4 / atol 1e-5 of each tensor's largest entry (a
+    TF32 backward misses by ~1e-3). On the minibatch both devices put every
+    ReLU input on the same side of zero (tests/torch_train_cases.py)."""
+    from tetris_mcts_tpu_torch.train.trainer import VVModel
+    from torch_train_cases import agreeing_minibatch
+
+    rng = np.random.RandomState(7)
+    n = 512
+    cols = [torch.as_tensor(rng.randint(-1, 2, (n, 1, 20, 10)).astype(np.float32)),
+            torch.as_tensor(rng.uniform(0, 50, n).astype(np.float32)),
+            torch.as_tensor(rng.uniform(0, 30, n).astype(np.float32)),
+            torch.as_tensor(rng.uniform(1, 5, n).astype(np.float32))]
+    cpu, gpu = VVModel(seed=5, device="cpu"), VVModel(seed=5, device="cuda")
+    idx, _, _ = agreeing_minibatch(cpu.net, gpu.net, cols[0], 128)
+    gcols = [c.cuda() for c in cols]
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lc, _, gc = cpu.loss_and_grads(tuple(c[idx] for c in cols))
+        lg, _, gg = gpu.loss_and_grads(tuple(c[idx.cuda()] for c in gcols))
+        for name, a, b in zip(cpu.names, gg, gc):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5 * float(b.abs().max()),
+                                       msg=name)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+        cpu.train_step(cols, idx)
+        gpu.train_step(gcols, idx.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(gpu.net.parameters(), cpu.net.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-6)
+
+
+class HostPlanes:
+    """Gumbel planes and store-drop draws from a CPU generator, moved to
+    `device`: the same draws on the card and on the CPU."""
+
+    def __init__(self, seed, device):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device = device
+
+    def __call__(self, B, D):
+        e = torch.empty(B, D, 7).exponential_(generator=self.gen)
+        return (-torch.log(e)).to(self.device), torch.zeros(B, D, 7, device=self.device)
+
+    def drop(self, shape):
+        return torch.rand(shape, generator=self.gen).to(self.device)
+
+
+def test_store_move_on_card_matches_cpu(card):
+    """Six lp moves with the store drop (the stub net): the replay ring and
+    the trees after the card's kernels equal the CPU's plain versions."""
+    scfg = M.SearchConfig(tree=T.TreeConfig(max_nodes=128, max_obs=128, table_size=256,
+                                            max_depth=24), sims=6)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def stub(x):
+            n = x.shape[0]
+            return (torch.linspace(1.0, 8.0, n, device=x.device),
+                    torch.full((n,), 2.5, device=x.device))
+
+        move = M.make_move_fn(M.nn_child_evaluator(stub), scfg, HostPlanes(4, dev),
+                              min_visits_store=2, store=True, store_drop=True)
+        trees, envs = M.init_batch(5, 8, scfg, device=dev)
+        rep = M.init_replay(96, dev)
+        rep.drop_prob.fill_(0.3)
+        for _ in range(6):
+            envs, _ = move(trees, envs, rep)
+        out[dev] = (trees, rep)
+    (tg, rg), (tc, rc) = out["cuda"], out["cpu"]
+    for a, b in zip(rg.rows(), rc.rows()):
+        assert torch.equal(a.cpu(), b)
+    for f in ("idx", "count", "total", "cand"):
+        assert getattr(rg, f).item() == getattr(rc, f).item(), f
+    assert rc.total.item() > 96 and rc.cand.item() > rc.total.item()
+    for f in ("visits", "values", "vars_", "obs_bits", "n_obs", "root"):
+        assert torch.equal(getattr(tg, f).cpu(), getattr(tc, f)), f

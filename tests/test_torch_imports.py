@@ -30,11 +30,14 @@ def test_no_forbidden_imports(path):
 
 
 def test_kernel_modules_are_checked():
-    """Every module that wraps a kernel, and the move program that drives
-    them, is among the sources checked above."""
+    """Every module that wraps a kernel, the move program that drives
+    them, and the training, replay and metrics modules of online self-play
+    are among the sources checked above."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py", "ops/bench_walk.py",
-                "search/mcts.py", "runtime/selfplay.py", "cli/play.py"):
+                "search/mcts.py", "search/tree.py", "runtime/selfplay.py", "cli/play.py",
+                "models/losses.py", "models/nets.py", "train/optim.py", "train/trainer.py",
+                "obs/metrics.py"):
         assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
 
 

@@ -93,12 +93,12 @@ def jax_planes(key, B_, D, policy="clt"):
 
 class JaxKeyPlanes:
     """Replays the JAX driver's key schedule: per move
-    `key, sub = split(key)` (SelfPlayDriver.step), `_, k_sims, _ =
+    `key, sub = split(key)` (SelfPlayDriver.step), `_, k_sims, k_drop =
     split(sub, 3)` (make_move_fn), then per sim `key, k_sel, k_ev =
     split(key, 3)` (make_run_sims), the gumbel draw of
     `select_batched_pallas` from `split(k_sel)[0]`, and the rollout's
     per-step `k, sub = split(k)`; `randint(sub, (B,), 0, 7)` from k_ev
-    (`rollout_evaluator`)."""
+    (`rollout_evaluator`); the store drop's `uniform(k_drop, shape)`."""
 
     def __init__(self, seed):
         self.key = jax.random.PRNGKey(seed)
@@ -106,8 +106,11 @@ class JaxKeyPlanes:
     def next_move(self):
         """The key the JAX driver hands its move program for the next move."""
         self.key, sub = jax.random.split(self.key)
-        self._k = jax.random.split(sub, 3)[1]
+        _, self._k, self._k_drop = jax.random.split(sub, 3)
         return sub
+
+    def drop(self, shape):
+        return torch.as_tensor(np.array(jax.random.uniform(self._k_drop, shape)))
 
     def __call__(self, B_, D):
         self._k, k_sel, self._k_ev = jax.random.split(self._k, 3)

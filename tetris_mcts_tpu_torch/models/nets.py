@@ -35,13 +35,18 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 @contextlib.contextmanager
-def _cudnn_tf32_off():
-    prev = torch.backends.cudnn.allow_tf32
+def tf32_off():
+    """True float32 for cuDNN convolutions and cuBLAS matmuls inside the
+    block; both settings are restored after. The forward runs in it;
+    training wraps a whole step in it too, because autograd runs the
+    backward after the forward's own block has exited."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class VVNet(nn.Module):
@@ -62,7 +67,7 @@ class VVNet(nn.Module):
     def forward(self, x, ubound, lbound, compute_dtype=None):
         dt = compute_dtype or torch.float32
         x = x.to(dt)
-        with _cudnn_tf32_off():
+        with tf32_off():
             for conv in (self.conv1, self.conv2, self.conv3):
                 x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt)))
         x = x.flatten(1)  # (c, y, x) order

@@ -1,17 +1,41 @@
-"""Frozen-net self-play driver (the reference `runtime/selfplay.py`
-`SelfPlayDriver` in benchmark mode: no replay store, no training), with
-the lp, leaf or rollout evaluator (`SelfPlayConfig.evaluator`).
+"""Self-play driver, online (storage and training) or in benchmark mode
+(counterpart of the reference package's `runtime/selfplay.py`
+`_OnlineDriverBase` and `SelfPlayDriver`), with the lp, leaf or rollout
+evaluator (`SelfPlayConfig.evaluator`).
 
 B games play MCTS moves in lockstep; each move is one call of the move
-program (`search/mcts.make_move_fn`), which stays on the device. The host
-reads back one small tensor per move (done, score, lines) for the episode
-bookkeeping, and logs episodes in the reference's format:
+program (`search/mcts.make_move_fn`), which stays on the device and, in
+online mode, appends the harvested trees' training rows to the replay ring
+on the device. The host reads back one small tensor per move (done, score
+and lines of every game, the ring's `total` and `cand` counters) for the
+episode bookkeeping and the training trigger, and logs episodes in the
+reference's format:
 
     Episode:     N  Score:         S  Lines Cleared:    L  lines(min/max/mean):...
+
+Online training follows the reference:
+
+- acc_policy -1 (default): a session fires once `train_rows_trigger` rows
+  have been harvested since the last one; the n-th session trains on the
+  newest min(n * memory_growth, memory_size) rows, rounded down to a
+  power-of-two multiple of train_batch (or the memory's cap);
+- acc_policy 0-3: the C++ agent's accumulation policies (an episode gate
+  with a stochastic store drop and a random trim on overflow; the same
+  gate with a weighted trim; the episode gate or a full memory; a growth
+  gate on the rows accumulated), each clearing the ring after a session,
+  with sessions rounded up to the next bucket by duplicating the oldest
+  rows at the front.
+
+The model is shared with the search: a session updates the net's params in
+place and rescales `ubound`, and the next move's forward reads both. A
+benchmark channel (`benchmark_every`) plays rounds of games on a twin
+driver in benchmark mode that shares the model. Metrics go to an optional
+`obs.metrics.MetricsWriter`.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import NamedTuple
@@ -19,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tetris_mcts_tpu_torch.env import engine
 from tetris_mcts_tpu_torch.env.engine import EnvConfig
 from tetris_mcts_tpu_torch.search import mcts
 from tetris_mcts_tpu_torch.search.mcts import SearchConfig
@@ -37,7 +62,27 @@ class SelfPlayConfig(NamedTuple):
     gamma: float = 0.999
     policy: str = "clt"
     low: int = 1
-    bf16: bool = False
+    min_visits_store: int = 25     # min visits of a stored obs
+    memory_size: int = 100_000     # replay ring capacity
+    memory_growth: int = 5_000     # per-session growth gate
+    train_rows_trigger: int = 5_000  # new rows between sessions
+    train_batch: int = 128
+    train_iters_per_val: int = 100
+    train_max_iters: int = 50_000
+    benchmark: bool = False        # no training, no storage
+    acc_policy: int = -1           # -1 growth-gated ring; 0-3 C++ policies
+    episodes_per_train: int = 25   # episode gate of policies 0-2
+    trim_fraction: float = 0.01    # overflow trim percentile / fraction
+    benchmark_every: int = 0       # benchmark round every N episodes; 0 off
+    benchmark_games: int = 8
+    benchmark_sims: int = 0        # 0 = 2x the training sims
+    benchmark_batch: int = 0       # 0 = min(benchmark_games, batch)
+    benchmark_max_moves: int = 5000
+    benchmark_max_nodes: int = 0   # 0 = auto-scale for benchmark_sims
+    episode_reuse: bool = False    # done lanes re-root in their own pool
+    bf16: bool = False             # bfloat16 body in the search's forward
+    checkpoint_each_train: bool = False  # save the model after each session
+    dump_dir: str = ""             # write dump.npz of each session's set
     seed: int = 0
     actions_per_drop: int = 1
     scoring: int = 0
@@ -72,88 +117,112 @@ class EpisodeTracker:
         return max(self._sumsq / self.n - self.mean**2, 0.0) ** 0.5
 
 
-class SelfPlayDriver:
-    """Owns the frozen model (weights made from cfg.seed), the batched
-    (trees, envs) device state and the move program, whose select walk
-    (and rollout) draws its randomness from a `mcts.TorchPlanes` on the
-    device seeded from cfg.seed. `run(n_moves)` / `run_episodes(n)` advance
-    self-play."""
+class _OnlineDriverBase:
+    """The host loop: episode bookkeeping, the training triggers
+    (`_maybe_train` for acc_policy -1, `_acc_policy_step` for 0-3), the
+    sessions, the benchmark channel and the throughput reports. A subclass
+    owns the move program, the model and the replay ring (`self.model`,
+    `self.replay`, `self.device`) and provides `step`,
+    `_training_columns(order)`, `_trim_uniforms(n)` and
+    `_reinit_games(seed)`."""
 
-    _TP_REPORT_EVERY = 50  # moves per throughput line
+    _TP_REPORT_EVERY = 50    # moves per throughput report, or a window of
+    _TP_REPORT_SECONDS = 25  # >= 4 moves older than this (sessions restart it)
 
-    def __init__(self, cfg: SelfPlayConfig, device="cuda",
-                 log=lambda s: print(s, file=sys.stderr, flush=True)):
+    def _init_bookkeeping(self, cfg: SelfPlayConfig, log, metrics):
         self.cfg = cfg
-        self.device = torch.device(device)
         self.log = log
-        self.model = VVModel(cfg.seed, self.device)
-        tree_cfg = TreeConfig(
-            max_nodes=cfg.max_nodes, max_obs=cfg.max_obs,
-            table_size=cfg.table_size, max_depth=cfg.max_depth,
-            gamma=cfg.gamma, policy=cfg.policy, low=cfg.low,
-            env=EnvConfig(actions_per_drop=cfg.actions_per_drop,
-                          scoring=cfg.scoring, randomizer=cfg.randomizer),
-        )
-        self.search_cfg = SearchConfig(tree=tree_cfg, sims=cfg.sims,
-                                       evaluator=cfg.evaluator)
-        planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
-        apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
-        if cfg.evaluator == "lp":
-            evaluator = mcts.nn_child_evaluator(apply_fn)
-        elif cfg.evaluator == "leaf":
-            evaluator = mcts.nn_leaf_evaluator(apply_fn)
-        elif cfg.evaluator == "rollout":
-            evaluator = mcts.rollout_evaluator(self.search_cfg, planes.actions)
-        else:
-            raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
-        self.evaluator = evaluator
-        self._move = mcts.make_move_fn(evaluator, self.search_cfg, planes)
-        self.trees, self.envs = mcts.init_batch(cfg.seed, cfg.batch,
-                                                self.search_cfg, self.device)
+        self.metrics = metrics
         self.episodes = 0
         self.moves = 0
         self.score_tracker = EpisodeTracker()
         self.line_tracker = EpisodeTracker()
         self.last_stats = None
+        self._live_lines = None
+        # training bookkeeping
+        self.n_trains = 0
+        self._rows_at_last_train = 0
+        self._prev_total = 0
+        self._storage_warned = False
+        self.train_history: list = []
+        # accumulation-policy bookkeeping (cfg.acc_policy >= 0)
+        self._mem_rows = 0             # rows since the last clear
+        self._last_train_episode = 0
+        self._ep_window: list = []     # (episodes, candidates) pairs
+        self._cand_prev = 0
+        self._last_ep_seen = 0
+        self._drop_prob_host = 0.0
+        self.trims = 0
+        # benchmark channel
+        self._bench = None
+        self._bench_broken = False
+        self._eps_at_last_bench = 0
+        self._bench_round = 0
+        # throughput window, restarted after every report, session and
+        # benchmark round, so it measures search time only
         self._tp_t0 = time.perf_counter()
         self._tp_moves = 0
 
-    def step(self):
-        """One batched move (B games advance one action each)."""
-        self.envs, stats = self._move(self.trees, self.envs)
+    def _restart_throughput(self):
+        self._tp_t0 = time.perf_counter()
+        self._tp_moves = 0
+
+    def _report_throughput(self, force: bool = False):
+        """One `throughput` report per window of 50 moves (or of >= 4 moves
+        older than 25 s): moves/s and sims/s = moves/s x B x sims.
+        `force=True` flushes a pending window of >= 4 moves without
+        counting a move (before a session or a benchmark round)."""
+        if force:
+            if self._tp_moves < 4:
+                return
+        else:
+            self._tp_moves += 1
+            if self._tp_moves < self._TP_REPORT_EVERY and not (
+                    self._tp_moves >= 4
+                    and time.perf_counter() - self._tp_t0 > self._TP_REPORT_SECONDS):
+                return
+        dt = time.perf_counter() - self._tp_t0
+        if dt > 0:
+            moves_per_s = self._tp_moves / dt
+            sims_per_s = moves_per_s * self.cfg.batch * self.cfg.sims
+            ll = self._live_lines
+            live = "" if ll is None else (f"  live lines mean/max {float(np.mean(ll)):.2f}/"
+                                          f"{int(np.max(ll))}")
+            self.log(f"Throughput: {moves_per_s:8.2f} moves/s  {sims_per_s:12.1f} "
+                     f"sims/s  (window {self._tp_moves} moves, batch "
+                     f"{self.cfg.batch}, {self.cfg.sims} sims)" + live)
+            if self.metrics is not None:
+                self.metrics.write(
+                    "throughput", moves=self.moves, sims=self.cfg.sims,
+                    batch=self.cfg.batch, max_nodes=self.cfg.max_nodes,
+                    moves_per_s=round(moves_per_s, 3), sims_per_s=round(sims_per_s, 1),
+                    live_lines_mean=None if ll is None else round(float(np.mean(ll)), 3),
+                    live_lines_max=None if ll is None else int(np.max(ll)))
+        self._restart_throughput()
+
+    def _after_move(self, stats):
+        """Host bookkeeping of one move, on ONE read from the device: the
+        games' done/score/lines and the ring's total and cand counters."""
         self.moves += 1
         self.last_stats = stats
-        # the one host read of the move
-        host = torch.stack([stats.done.to(torch.int64), stats.score.to(torch.int64),
-                            stats.lines.to(torch.int64)]).cpu().numpy()
-        done, score, lines = host[0] != 0, host[1], host[2]
+        B = stats.done.shape[0]
+        rep = self.replay
+        host = torch.cat([
+            torch.stack([stats.done.to(torch.int64), stats.score.to(torch.int64),
+                         stats.lines.to(torch.int64)]).reshape(-1),
+            torch.stack([rep.total, rep.cand]).to(torch.int64)]).cpu().numpy()
+        done, score, lines = host[:B] != 0, host[B:2 * B], host[2 * B:3 * B]
+        total, cand = int(host[3 * B]), int(host[3 * B + 1])
+        self._live_lines = lines
         self._report_throughput()
         self._finish_episodes(done, score, lines)
+        if not self.cfg.benchmark:
+            if self.cfg.acc_policy < 0:
+                self._maybe_train(total)
+            else:
+                self._acc_policy_step(total, cand)
+            self._maybe_benchmark()
         return stats
-
-    def run(self, n_moves: int):
-        for _ in range(n_moves):
-            self.step()
-
-    def run_episodes(self, n_episodes: int, max_moves: int = 10_000_000):
-        target = self.episodes + n_episodes
-        moves = 0
-        while self.episodes < target and moves < max_moves:
-            self.step()
-            moves += 1
-
-    def _report_throughput(self):
-        self._tp_moves += 1
-        if self._tp_moves < self._TP_REPORT_EVERY:
-            return
-        dt = time.perf_counter() - self._tp_t0
-        moves_per_s = self._tp_moves / dt
-        sims_per_s = moves_per_s * self.cfg.batch * self.cfg.sims
-        self.log(f"Throughput: {moves_per_s:8.2f} moves/s  {sims_per_s:12.1f} "
-                 f"sims/s  (window {self._tp_moves} moves, batch "
-                 f"{self.cfg.batch}, {self.cfg.sims} sims)")
-        self._tp_t0 = time.perf_counter()
-        self._tp_moves = 0
 
     def _finish_episodes(self, done, score, lines):
         for i in np.nonzero(done)[0]:
@@ -168,3 +237,319 @@ class SelfPlayDriver:
                 f"score(mean±std):{self.score_tracker.mean:.1f}"
                 f"±{self.score_tracker.std:.1f}"
             )
+            if self.metrics is not None:
+                self.metrics.write("episode", n=self.episodes, lines=int(lines[i]),
+                                   score=int(score[i]), benchmark=self.cfg.benchmark)
+
+    # ------------------------------------------------------ acc_policy -1
+    def _maybe_train(self, total_rows: int):
+        # a driver that has finished episodes yet stored no row is broken
+        # (min_visits too high, or a wrong search): say so once
+        if (total_rows == 0 and not self._storage_warned
+                and (self.episodes >= self.cfg.batch
+                     or (self.episodes > 0 and self.moves >= 1000))):
+            self._storage_warned = True
+            self.log(f"WARNING: {self.episodes} episodes / {self.moves} moves "
+                     "finished but the replay ring holds ZERO rows — the search "
+                     "is likely broken (or min_visits too high). Training will "
+                     "never trigger.")
+            if self.metrics is not None:
+                self.metrics.write("zero_storage_warning", episodes=self.episodes,
+                                   moves=self.moves)
+        if total_rows - self._prev_total > self.cfg.memory_size:
+            self.log("warning: one move harvested more rows than memory_size; "
+                     "the ring overwrote itself and the excess was lost")
+        self._prev_total = total_rows
+        if total_rows - self._rows_at_last_train < self.cfg.train_rows_trigger:
+            return
+        self._report_throughput(force=True)
+        if self.train():
+            self._rows_at_last_train = total_rows
+            self._restart_throughput()
+        # on a skip the trigger stays armed and retries next move
+
+    def train(self):
+        """One session on the newest min((n + 1) * memory_growth,
+        memory_size) rows (at least one minibatch). False when skipped."""
+        m_size = min((self.n_trains + 1) * self.cfg.memory_growth, self.cfg.memory_size)
+        m_size = max(m_size, self.cfg.train_batch)
+        return self._run_training_session(min(m_size, int(self.replay.count)))
+
+    def _run_training_session(self, use):
+        """Train on the newest `use` ring rows, bucketed to a power-of-two
+        multiple of train_batch or the memory's cap (rounded down; under
+        acc_policy >= 0 rounded up, the oldest rows duplicated at the
+        front). Returns False when there is not one minibatch."""
+        cfg = self.cfg
+        count = int(self.replay.count)
+        cap = cfg.memory_size - cfg.memory_size % cfg.train_batch
+        use = min(use, count)
+        use -= use % cfg.train_batch
+        if use < cfg.train_batch:
+            self.log(f"Training session {self.n_trains + 1}: only {count} rows, skipped")
+            return False
+        pad = 0
+        if use < cap:
+            bucket = cfg.train_batch
+            while bucket * 2 <= use:
+                bucket *= 2
+            if cfg.acc_policy >= 0 and use > bucket:
+                # the ring is cleared after this session: round up, so no
+                # fresh row goes untrained; the validation tail stays the
+                # newest rows
+                pad = min(bucket * 2, cap) - use
+            else:
+                use = min(bucket, cap)
+        self.n_trains += 1
+
+        idx = int(self.replay.idx)
+        order = (np.arange(idx - use, idx) % cfg.memory_size).astype(np.int64)
+        if pad:
+            order = np.concatenate([order[:pad], order])
+            use += pad
+        data = self._training_columns(order)
+
+        self.log(f"Training session {self.n_trains}: {use} rows "
+                 f"(memory {count}/{cfg.memory_size})")
+        self._dump_training_data(data)
+        t0 = time.time()
+        hist = self.model.train_data(
+            data, batch_size=cfg.train_batch, iters_per_val=cfg.train_iters_per_val,
+            max_iters=cfg.train_max_iters, shuffle=True, log=self.log)
+        seconds = time.time() - t0
+        self.train_history.append(hist)
+        self.log(f"Training session {self.n_trains} done in {seconds:.1f}s")
+        if cfg.checkpoint_each_train:
+            self.model.save()
+        if self.metrics is not None:
+            last = hist[-1] if hist else (0, float("nan"), float("nan"), 0.0, None)
+            self.metrics.write("train_session", n=self.n_trains, rows=use,
+                               seconds=seconds, iters=last[0], loss_train=last[1],
+                               loss_val=last[2], grad_norm=last[4])
+        return True
+
+    def _dump_training_data(self, data):
+        if not self.cfg.dump_dir:
+            return
+        os.makedirs(self.cfg.dump_dir, exist_ok=True)
+        states, value, var, weight = (torch.as_tensor(x).cpu().numpy() for x in data)
+        np.savez(os.path.join(self.cfg.dump_dir, "dump"), states=states, values=value,
+                 variance=var, weights=weight)
+
+    # ------------------------------------------------------ acc_policy 0-3
+    def _acc_policy_step(self, total: int, cand: int):
+        """One move of the C++ agent's accumulation logic: the memory's
+        fill (`_mem_rows`, clamped at capacity), policy 0's drop
+        probability from the candidate rate of the last episodes_per_train
+        episodes, the trims on overflow (0 random, 1 weighted), the
+        policy's training gate, and the clear after a session."""
+        cfg = self.cfg
+        self._mem_rows = min(self._mem_rows + total - self._prev_total, cfg.memory_size)
+        self._prev_total = total
+
+        if cfg.acc_policy == 0 and self.episodes > self._last_ep_seen:
+            self._ep_window.append((self.episodes - self._last_ep_seen,
+                                    cand - self._cand_prev))
+            self._cand_prev = cand
+            self._last_ep_seen = self.episodes
+            while sum(e for e, _ in self._ep_window[1:]) >= cfg.episodes_per_train:
+                self._ep_window.pop(0)
+            sum_e = sum(e for e, _ in self._ep_window)
+            sum_c = sum(c for _, c in self._ep_window)
+            est = sum_c * (cfg.episodes_per_train / max(sum_e, 1))
+            p_drop = max(0.0, 1.0 - cfg.memory_size / max(est, 1.0))
+            if abs(p_drop - self._drop_prob_host) > 1e-3:
+                self.replay.drop_prob.fill_(p_drop)
+                self._drop_prob_host = p_drop
+                self.log(f"Average nodes stored per episode: "
+                         f"{sum_c / max(sum_e, 1):.0f}    "
+                         f"Memory dropping probability: {p_drop:.4f}")
+
+        diff = self.episodes - self._last_train_episode
+        full = self._mem_rows >= cfg.memory_size
+        p = cfg.acc_policy
+        if p in (0, 1):
+            do_train = diff >= cfg.episodes_per_train
+            if not do_train and full:
+                if p == 0:
+                    dropped = mcts.replay_trim_random(
+                        self.replay, cfg.trim_fraction, self._trim_uniforms(cfg.memory_size))
+                else:
+                    dropped = mcts.replay_trim_weighted(self.replay, cfg.trim_fraction)
+                dropped = int(dropped)
+                self.trims += 1
+                self._mem_rows = max(self._mem_rows - dropped, 0)
+                self.log("Memory limit exceeded, trimming memory "
+                         f"({'random' if p == 0 else 'weighted'}: {dropped} rows; "
+                         f"memory {self._mem_rows}/{cfg.memory_size})")
+        elif p == 2:
+            do_train = diff >= cfg.episodes_per_train or full
+        elif p == 3:
+            m_size = min(self.n_trains * cfg.memory_growth, cfg.memory_size)
+            do_train = self._mem_rows >= max(m_size, cfg.train_batch)
+        else:
+            raise ValueError(f"acc_policy {p} not in -1..3")
+
+        if do_train:
+            self._report_throughput(force=True)
+        if do_train and self._run_training_session(min(self._mem_rows, cfg.memory_size)):
+            mcts.replay_clear(self.replay)
+            self._mem_rows = 0
+            self._last_train_episode = self.episodes
+            self._restart_throughput()
+
+    # --------------------------------------------------- benchmark channel
+    def reset_games(self, seed: int):
+        """Fresh games and episode bookkeeping (a benchmark round starts
+        clean)."""
+        self._reinit_games(seed)
+        self.episodes = 0
+        self.score_tracker = EpisodeTracker()
+        self.line_tracker = EpisodeTracker()
+
+    def _maybe_benchmark(self):
+        """Every benchmark_every finished episodes, play benchmark_games
+        finished games at benchmark_sims on the twin driver (training and
+        storage off, the same model) and write one `benchmark` event."""
+        cfg = self.cfg
+        if cfg.benchmark_every <= 0 or self._bench_broken:
+            return
+        if self.episodes - self._eps_at_last_bench < cfg.benchmark_every:
+            return
+        self._report_throughput(force=True)
+        self._eps_at_last_bench = self.episodes
+        self._bench_round += 1
+        try:
+            self._run_benchmark_round()
+        except Exception as e:  # noqa: BLE001 — a broken twin must not end the run
+            self._bench_broken = True
+            self._bench = None
+            self.log(f"Benchmark channel DISABLED after error: {e!r}")
+            self._restart_throughput()
+
+    def _run_benchmark_round(self):
+        cfg = self.cfg
+        if self._bench is None:
+            bsims = cfg.benchmark_sims or 2 * cfg.sims
+            bbatch = cfg.benchmark_batch or min(cfg.benchmark_games, cfg.batch)
+            auto_nodes = max(cfg.max_nodes, 1 << (8 * bsims - 1).bit_length())
+            bnodes = cfg.benchmark_max_nodes or auto_nodes
+            bobs = max(cfg.max_obs, bnodes)
+            bcfg = cfg._replace(
+                batch=bbatch, sims=bsims, benchmark=True, max_nodes=bnodes,
+                max_obs=bobs,
+                table_size=max(cfg.table_size, 1 << (2 * bobs - 1).bit_length()),
+                memory_size=max(cfg.train_batch, 1024), benchmark_every=0)
+            self.log(f"Benchmark channel: building twin driver (batch {bbatch}, "
+                     f"{bsims} sims, {bnodes} nodes)")
+            self._bench = type(self)(bcfg, model=self.model, device=self.device,
+                                     log=self.log, metrics=self.metrics)
+        bench = self._bench
+        bench.reset_games(cfg.seed + 7777 * self._bench_round)
+        t0 = time.time()
+        bench.run_episodes(cfg.benchmark_games, max_moves=cfg.benchmark_max_moves)
+        lt, st = bench.line_tracker, bench.score_tracker
+        if lt.n == 0:
+            self.log(f"Benchmark round {self._bench_round}: no game finished within "
+                     f"{cfg.benchmark_max_moves} moves [{time.time() - t0:.1f}s]")
+            self._restart_throughput()
+            return
+        self.log(f"Benchmark round {self._bench_round} ({lt.n} games, "
+                 f"{bench.cfg.sims} sims): lines {lt.mean:.2f}±{lt.std:.2f} "
+                 f"(min {lt.min:.0f} max {lt.max:.0f})  score {st.mean:.1f}"
+                 f"±{st.std:.1f}  [{time.time() - t0:.1f}s]")
+        if self.metrics is not None:
+            # a snapshot of the net this round measured, named in the event
+            snap_name = None
+            if cfg.checkpoint_each_train:
+                root, ext = os.path.splitext(self.model.checkpoint_path)
+                snap = f"{root}.bench{self.metrics.run}_{self._bench_round}{ext}"
+                try:
+                    self.model.save(snap)
+                    snap_name = os.path.basename(snap)
+                except OSError as e:
+                    self.log(f"benchmark snapshot failed ({e!r})")
+            self.metrics.write(
+                "benchmark", round=self._bench_round, episode=self.episodes,
+                games=lt.n, sims=bench.cfg.sims, lines_mean=round(lt.mean, 3),
+                lines_std=round(lt.std, 3), lines_min=lt.min, lines_max=lt.max,
+                score_mean=round(st.mean, 2), score_std=round(st.std, 2),
+                snapshot=snap_name)
+        self._restart_throughput()
+
+    def run(self, n_moves: int):
+        for _ in range(n_moves):
+            self.step()
+
+    def run_episodes(self, n_episodes: int, max_moves: int = 10_000_000):
+        target = self.episodes + n_episodes
+        moves = 0
+        while self.episodes < target and moves < max_moves:
+            self.step()
+            moves += 1
+
+
+class SelfPlayDriver(_OnlineDriverBase):
+    """Owns the model (weights made from cfg.seed unless one is given), the
+    batched (trees, envs) device state, the replay ring and the move
+    program, whose randomness comes from a `mcts.TorchPlanes` on the device
+    seeded from cfg.seed. `run(n_moves)` / `run_episodes(n)` advance
+    self-play; in online mode training sessions fire from the gates."""
+
+    def __init__(self, cfg: SelfPlayConfig, model: VVModel | None = None,
+                 device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
+                 metrics=None):
+        self._init_bookkeeping(cfg, log, metrics)
+        self.device = torch.device(device)
+        self.model = model if model is not None else VVModel(cfg.seed, self.device)
+        tree_cfg = TreeConfig(
+            max_nodes=cfg.max_nodes, max_obs=cfg.max_obs,
+            table_size=cfg.table_size, max_depth=cfg.max_depth,
+            gamma=cfg.gamma, policy=cfg.policy, low=cfg.low,
+            env=EnvConfig(actions_per_drop=cfg.actions_per_drop,
+                          scoring=cfg.scoring, randomizer=cfg.randomizer),
+        )
+        self.search_cfg = SearchConfig(tree=tree_cfg, sims=cfg.sims,
+                                       evaluator=cfg.evaluator)
+        self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
+        if cfg.evaluator == "lp":
+            evaluator = mcts.nn_child_evaluator(apply_fn)
+        elif cfg.evaluator == "leaf":
+            evaluator = mcts.nn_leaf_evaluator(apply_fn)
+        elif cfg.evaluator == "rollout":
+            evaluator = mcts.rollout_evaluator(self.search_cfg, self.planes.actions)
+        else:
+            raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
+        self.evaluator = evaluator
+        self._move = mcts.make_move_fn(
+            evaluator, self.search_cfg, self.planes,
+            min_visits_store=cfg.min_visits_store, store=not cfg.benchmark,
+            store_drop=cfg.acc_policy == 0, episode_reuse=cfg.episode_reuse)
+        self.trees, self.envs = mcts.init_batch(cfg.seed, cfg.batch,
+                                                self.search_cfg, self.device)
+        self.replay = mcts.init_replay(cfg.memory_size, self.device)
+        self._trim_gen = torch.Generator(device=self.device)
+        self._trim_gen.manual_seed(cfg.seed)
+
+    def _reinit_games(self, seed: int):
+        self.trees, self.envs = mcts.init_batch(seed, self.cfg.batch,
+                                                self.search_cfg, self.device)
+        self.planes.gen.manual_seed(seed)
+
+    def step(self):
+        """One batched move (B games advance one action each)."""
+        self.envs, stats = self._move(self.trees, self.envs, self.replay)
+        return self._after_move(stats)
+
+    def _trim_uniforms(self, n: int):
+        """Uniform draws (n,) of the random trim."""
+        return torch.rand(n, generator=self._trim_gen, device=self.device)
+
+    def _training_columns(self, order):
+        """[states int8 (n, 20, 10), value, var, weight] of the ring rows
+        `order`, on the device; the boards are unpacked here."""
+        o = torch.as_tensor(order, device=self.device)
+        rep = self.replay
+        return [engine.unpack_obs(rep.boards[o]), rep.value[o], rep.var[o],
+                rep.weight[o]]

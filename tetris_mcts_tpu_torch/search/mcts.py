@@ -1,8 +1,8 @@
-"""Batched MCTS moves with the leaf-parallel, leaf and rollout evaluators.
+"""Batched MCTS moves with the leaf-parallel, leaf and rollout evaluators,
+and the on-device replay ring that online self-play trains from.
 
-Counterpart of the reference package's `search/mcts.py` on the path of
-frozen-net self-play (`store=False`, `episode_reuse=False`). One
-simulation for all B trees:
+Counterpart of the reference package's `search/mcts.py`. One simulation
+for all B trees:
 
     select kernel (walk + inline env stepping + the leaf's 7 child steps)
     -> insert kernel (obs ids of the 7 children) -> expand_commit
@@ -27,21 +27,28 @@ A lane that did not expand (a terminal leaf, or no room) backs up
 One move is `sims` simulations, the greedy root action, the real env step,
 the root advance, and the harvest-and-reset of every lane that is done,
 whose pool is full, or whose root could not be allocated: that lane's whole
-tree is wiped and re-rooted at its (soft-reset) env. The lp and leaf moves
-stay on the device: they never read a value back to the host, so the
+tree is wiped and re-rooted at its (soft-reset) env. With `store=True` the
+harvest first appends the lane's training rows (every obs with at least
+`min_visits_store` visits that is not terminal) to the replay ring
+(`Replay`); `store_drop=True` drops each such row with the ring's
+`drop_prob`. With `episode_reuse=True` a lane whose game ended keeps its
+tree and re-roots in it; only a full pool or a lost root resets it. The
+harvest and the store run masked on every move, so the lp and leaf moves
+stay on the device: they never read a value back to the host, and the
 driver's one read per move is the only synchronisation. The rollout reads
 one flag every `ROLLOUT_EXIT_EVERY` playout steps, to stop once every
 playout has ended.
 
 Randomness: the select walk takes pre-drawn (B, D, 7) gumbel planes (and
-per-child planes for the mc/random policies), and the rollout one action
-draw per step. `TorchPlanes` draws both from a `torch.Generator` on the
-device; a test can pass any other source, for example one that replays the
-JAX key schedule.
+per-child planes for the mc/random policies), the rollout one action draw
+per step, and the store drop one uniform a harvested row. `TorchPlanes`
+draws all of them from a `torch.Generator` on the device; a test can pass
+any other source, for example one that replays the JAX key schedule.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import torch
@@ -114,6 +121,10 @@ class TorchPlanes:
         """Uniform actions (B,) for playout step `step` of a rollout."""
         return torch.randint(0, N_ACTIONS, (B,), generator=self.gen,
                              device=self.device)
+
+    def drop(self, shape):
+        """Uniform [0, 1) draws of the store drop, one a harvested row."""
+        return torch.rand(shape, generator=self.gen, device=self.device)
 
 
 def nn_child_evaluator(net_fn: Callable):
@@ -222,17 +233,25 @@ def capacity_guard_for(sims: int, tcfg: TreeConfig) -> int:
     return need
 
 
-def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes: Callable):
-    """`move(trees, envs) -> (envs, MoveStats)`: one batched move in
-    benchmark mode (no replay store, a fresh tree per episode). envs are
-    packed (B, 44) int32 states; trees are updated in place."""
+def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes,
+                 min_visits_store: int = 10, store: bool = False,
+                 store_drop: bool = False, episode_reuse: bool = False):
+    """`move(trees, envs, replay=None) -> (envs, MoveStats)`: one batched
+    move. envs are packed (B, 44) int32 states; trees (and the replay ring,
+    which `store=True` requires) are updated in place. `store=False` is
+    benchmark mode: nothing is harvested into a ring (the reference's
+    default is `store=True`). `planes` gives the select walk's planes
+    (`planes(B, D)`) and, for `store_drop`, the drop draws
+    (`planes.drop(shape)`)."""
     tcfg = cfg.tree
     run_sims = make_run_sims(evaluator, cfg, planes)
     guard = capacity_guard_for(cfg.sims, tcfg)
     env_kw = dict(actions_per_drop=tcfg.env.actions_per_drop,
                   scoring=tcfg.env.scoring, randomizer=tcfg.env.randomizer)
 
-    def move(trees: Tree, envs):
+    def move(trees: Tree, envs, replay: "Replay | None" = None):
+        if store and replay is None:
+            raise ValueError("a move with store=True needs the replay ring")
         run_sims(trees)
         stats = T.compute_stats(trees)
         action = T.best_action(stats)
@@ -243,11 +262,25 @@ def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes: Callable):
         done = envs2[:, 43] != 0
         full = (trees.n_nodes + guard > tcfg.max_nodes) | (
             trees.n_obs + guard > tcfg.max_obs)
-        trigger = done | full | (trees.root == 0)
+        trigger = full | (trees.root == 0)
+        if not episode_reuse:
+            trigger = trigger | done
         n_nodes_before = trees.n_nodes.clone()
         fresh = engine.pack_state(engine.soft_reset(engine.unpack_state(envs2), tcfg.env))
         envs3 = torch.where(done[:, None], fresh, envs2)
+        if store:
+            # the trigger lanes' rows, before their trees are wiped
+            packed, val, var, w, mask = T.harvest(trees, min_visits_store)
+            mask = mask & trigger[:, None]
+            if store_drop:
+                kept = mask & (planes.drop(mask.shape) >= replay.drop_prob)
+                replay_add(replay, packed, val, var, w, kept, mask_candidates=mask)
+            else:
+                replay_add(replay, packed, val, var, w, mask)
         T.reset_trees(trees, envs3, trigger, tcfg)
+        if episode_reuse:
+            # a finished game that kept its tree re-roots in the same pool
+            T.new_episode_root(trees, envs3, done & ~trigger, tcfg)
         out = MoveStats(
             action=action, probs=probs, child_stats=stats, root_value=rv,
             root_var=rvar, score=envs2[:, 36], lines=envs2[:, 38], done=done,
@@ -256,6 +289,141 @@ def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes: Callable):
         return envs3, out
 
     return move
+
+
+# ---------------------------------------------------------------------------
+# replay ring (device-resident, packed boards)
+# ---------------------------------------------------------------------------
+
+# Rows past the ring's capacity R that a scatter writes its dropped rows to,
+# in place of the reference's out-of-range index with mode="drop": row j of
+# a scatter's input goes to R + j % REPLAY_SINK, so the dropped rows of a
+# harvest (most of its B x M rows) do not all store to one address.
+REPLAY_SINK = 1024
+
+
+@dataclass
+class Replay:
+    """The training-memory ring (the reference `Replay`). Boards are packed
+    (int32 u32 bits, as the tree's `obs_bits`); `engine.unpack_obs` makes
+    images of them for training. The row arrays hold `capacity` ring rows
+    and then REPLAY_SINK rows that are never read. The counters are int32
+    device scalars: `idx` the next write slot, `count` the rows held
+    (<= capacity), `total` the rows ever written and `cand` the store
+    candidates ever seen before the stochastic drop (both monotone);
+    `drop_prob` is that drop's probability, set by the host."""
+
+    capacity: int
+    boards: torch.Tensor   # int32 (R + sink, 20)
+    value: torch.Tensor    # float32 (R + sink,)
+    var: torch.Tensor
+    weight: torch.Tensor
+    idx: torch.Tensor
+    count: torch.Tensor
+    total: torch.Tensor
+    cand: torch.Tensor
+    drop_prob: torch.Tensor
+
+    def rows(self):
+        """The ring rows (boards, value, var, weight), sink excluded."""
+        R = self.capacity
+        return self.boards[:R], self.value[:R], self.var[:R], self.weight[:R]
+
+
+def init_replay(capacity: int, device="cuda") -> Replay:
+    n = capacity + REPLAY_SINK
+    zi = lambda: torch.zeros((), dtype=torch.int32, device=device)
+    zf = lambda *s: torch.zeros(*s, dtype=torch.float32, device=device)
+    return Replay(capacity=capacity,
+                  boards=torch.zeros(n, 20, dtype=torch.int32, device=device),
+                  value=zf(n), var=zf(n), weight=zf(n), idx=zi(), count=zi(),
+                  total=zi(), cand=zi(), drop_prob=zf(()))
+
+
+def _sink(R, n, device):
+    return R + torch.arange(n, device=device) % REPLAY_SINK
+
+
+def _scatter_rows(rep: Replay, dst, cols):
+    for a, x in zip((rep.boards, rep.value, rep.var, rep.weight), cols):
+        a.index_put_((dst,), x)
+
+
+def replay_add(rep: Replay, packed, value, var, weight, mask, mask_candidates=None):
+    """Append the masked rows (any leading shape, flattened) at the ring's
+    head, in place. When one call holds more than `capacity` rows only the
+    newest `capacity` are kept. `mask_candidates` (default `mask`) is
+    counted into `cand`."""
+    R = rep.capacity
+    mask = mask.reshape(-1)
+    cols = (packed.reshape(-1, 20), value.reshape(-1), var.reshape(-1),
+            weight.reshape(-1))
+    cand = mask if mask_candidates is None else mask_candidates.reshape(-1)
+    pos = torch.cumsum(mask, 0) - 1
+    n = mask.sum()
+    keep = mask & (pos >= n - R)
+    dst = torch.where(keep, (rep.idx + pos) % R, _sink(R, mask.shape[0], mask.device))
+    _scatter_rows(rep, dst, cols)
+    rep.idx.copy_((rep.idx + n) % R)
+    rep.count.copy_(torch.clamp_max(rep.count + n, R))
+    rep.total.add_(n.to(torch.int32))
+    rep.cand.add_(cand.sum().to(torch.int32))
+
+
+def _logical(rep: Replay):
+    """(order, valid): the ring slots oldest first, and which hold rows."""
+    ar = torch.arange(rep.capacity, device=rep.boards.device)
+    return (rep.idx - rep.count + ar) % rep.capacity, ar < rep.count
+
+
+def _replay_compact(rep: Replay, keep_logical):
+    """Move the kept rows (in age order) to the front of the ring, in place;
+    `keep_logical` (R,) is in logical order, oldest first. Returns the rows
+    dropped (a device scalar); idx = count = the rows kept."""
+    R = rep.capacity
+    order, valid = _logical(rep)
+    keep = keep_logical & valid
+    pos = torch.cumsum(keep, 0) - 1
+    kept = keep.sum().to(torch.int32)
+    cols = [a[order] for a in (rep.boards, rep.value, rep.var, rep.weight)]
+    for a in (rep.boards, rep.value, rep.var, rep.weight):
+        a.zero_()
+    _scatter_rows(rep, torch.where(keep, pos, _sink(R, R, rep.boards.device)), cols)
+    dropped = rep.count - kept
+    rep.idx.copy_(kept % R)
+    rep.count.copy_(kept)
+    return dropped
+
+
+def replay_trim_weighted(rep: Replay, percentile: float):
+    """`weighted_trimming`: drop every row whose weight is <= the
+    `percentile` quantile of the stored weights (ties drop together),
+    keeping the rest in age order, in place. Returns the rows dropped."""
+    R = rep.capacity
+    order, valid = _logical(rep)
+    w = rep.weight[order]
+    ws = torch.sort(torch.where(valid, w, torch.inf)).values
+    k = (rep.count.float() * percentile).to(torch.int64)
+    return _replay_compact(rep, w > ws[k.clamp(0, R - 1)])
+
+
+def replay_trim_random(rep: Replay, fraction: float, u):
+    """`random_trimming`: drop floor(count * fraction) stored rows, those
+    with the smallest of the uniform draws u (R,) (in logical order),
+    keeping the rest in age order, in place. Returns the rows dropped."""
+    R = rep.capacity
+    _, valid = _logical(rep)
+    m = (rep.count.float() * fraction).to(torch.int64)
+    uu = torch.where(valid, u, torch.inf)
+    thr = torch.sort(uu).values[(m - 1).clamp(0, R - 1)]
+    return _replay_compact(rep, ~(valid & (uu <= thr) & (m > 0)))
+
+
+def replay_clear(rep: Replay):
+    """`memory_index = 0` after a training session: the ring is emptied;
+    the monotone counters stay."""
+    rep.idx.zero_()
+    rep.count.zero_()
 
 
 def init_batch(seed: int, batch: int, cfg: SearchConfig, device="cuda"):

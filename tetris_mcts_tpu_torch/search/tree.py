@@ -262,6 +262,17 @@ def alloc_node(trees: Tree, env, ok, cfg: TreeConfig):
     return idx
 
 
+def new_episode_root(trees: Tree, env, ok, cfg: TreeConfig):
+    """Where ok (B,): re-root into the same pool at packed state env (B, 44)
+    without wiping the tree (the reference `new_episode_root`): the finished
+    game's subtree stays in the pool until the next harvest-and-reset, and
+    obs statistics persist across episodes. A full pool gives root 0, which
+    the next move's `root == 0` trigger turns into a harvest-and-reset."""
+    idx = alloc_node(trees, env, ok, cfg)
+    trees.root = torch.where(ok, idx, trees.root)
+    trees.root_env = torch.where(ok[:, None], env, trees.root_env)
+
+
 def init_tree(env, cfg: TreeConfig) -> Tree:
     """Fresh trees rooted at packed states env (B, 44) int32."""
     B = env.shape[0]
@@ -458,3 +469,20 @@ def advance_root(trees: Tree, action, env, cfg: TreeConfig):
     fresh = alloc_node(trees, env, need, cfg)
     trees.root = torch.where(need, fresh, c).to(torch.int32)
     trees.root_env = env.clone()
+
+
+# ---------------------------------------------------------------------------
+# training-data harvest
+# ---------------------------------------------------------------------------
+
+def harvest(trees: Tree, min_visits: int):
+    """Training rows of every tree (the reference `harvest`): each obs slot
+    with visits >= min_visits that is in use and not terminal. Returns
+    (packed (B, M, 20) int32 u32 bits, value (B, M), var (B, M), weight =
+    visits (B, M), mask (B, M) bool); the boards stay packed."""
+    B, M = trees.visits.shape
+    slots = torch.arange(M, device=trees.visits.device)
+    mask = ((slots >= 1) & (slots < trees.n_obs[:, None])
+            & (trees.visits >= min_visits) & ~trees.obs_end)
+    return (trees.obs_bits.permute(0, 2, 1), trees.values, trees.vars_,
+            trees.visits, mask)
