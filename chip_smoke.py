@@ -54,7 +54,20 @@ of the JAX package. Phases, each printing its elapsed seconds:
    on fixed boards must change; then one train step on the card against
    the same step on the CPU (TF32 switched on around it, so the step must
    pin it off), the device time and launches of a train step and of a
-   move's harvest and store, and a save/load round trip.
+   move's harvest and store, and a save/load round trip;
+11. cycle (lp, offline): the offline cycle through the CLI mains (`play`,
+   `train`, `cycle`), in process, at the same width: `play --benchmark`
+   for 20 moves without and then with `--save --save_tree --status_dir`
+   (the saver's added host ms a move); the 1280 saved rows read back by
+   `DataLoader` must equal the values the driver had on the card for one
+   checked move, its boards the pre-move boards, the status memmaps game
+   0's last published board, and select, insert and LP backup must each
+   launch 2000 times in the saving run; `train --td --weighted
+   --weighted_mode 1 --early_stopping --validation --save_loss` (at most
+   2000 steps) on those rows writes a checkpoint and `loss0.rec`; `play
+   --benchmark --load_model` for 5 moves (500 launches of each walk) must
+   give outputs on fixed boards that differ from the seed net's; then
+   `cycle --dry_run --iters 2` prints its plan.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. It then prints a JSON `kernels` line, the card's name and power
@@ -75,6 +88,8 @@ import time
 WATCHDOG_S = 600
 ONLINE_MAX_ITERS = 2000  # the online phase's cut of train_max_iters (CLI: 50000)
 ONLINE_MOVE_CAP = 80
+CYCLE_MOVES, CYCLE_CHECKED_MOVE = 20, 10  # the cycle phase's play runs
+CYCLE_TRAIN_ITERS = 2000  # the cycle phase's cut of train's --max_iters (CLI: 100000)
 PROFILER_SESSIONS = 3  # device_ms's tries; each kernel row reports how many it took
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 FP32_FLOPS = 67e12         # H100 SXM published float32 rate outside the tensor cores
@@ -719,6 +734,9 @@ def main() -> int:
     # ---- 10. online: self-play with training at the CLI's width --------------
     phase_online(torch, smi)
 
+    # ---- 11. the offline cycle through the CLI mains -------------------------
+    phase_cycle(torch, smi)
+
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"tetris_mcts_tpu_torch/csrc/{src}",
@@ -949,6 +967,204 @@ def phase_online(torch, smi):
         say(f"  checkpoint round trip: params, Yogi state ({back.opt.count} steps), bounds and "
             f"outputs equal ({os.path.getsize(path)} bytes)")
     say(f"phase online took {time.perf_counter() - t:.1f}s")
+
+
+def phase_cycle(torch, smi):
+    """The offline cycle through the CLI mains, in process, at the CLI's
+    width: self-play with the saver against without it, the saved rows
+    against the driver's device values, an offline session on those rows,
+    self-play with the trained net, and the cycle's plan."""
+    import tempfile
+
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.cli import cycle, play, train
+    from tetris_mcts_tpu_torch.env import engine
+    from tetris_mcts_tpu_torch.obs.metrics import StatusPublisher, StatusReader
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
+    from tetris_mcts_tpu_torch.search import tree as T
+    from tetris_mcts_tpu_torch.train.trainer import VVModel
+    from tetris_mcts_tpu_torch.utils.data import DataLoader, DataSaver, LossLoader
+
+    t = time.perf_counter()
+    step, columns, publish, train_data = (SelfPlayDriver.step, SelfPlayDriver._publish_columns,
+                                          SelfPlayDriver._publish, VVModel.train_data)
+    status_publish, add_batch = StatusPublisher.publish, DataSaver.add_batch
+    times, columns_s, publish_s, seen, session = [], [], [], {}, {}
+    part_s = {"status": [], "write": []}
+
+    def timed(fn, key):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            part_s[key].append(time.perf_counter() - t0)
+        return f
+
+    def timed_step(self):
+        t0 = time.perf_counter()
+        prev = self.envs
+        st = step(self)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == CYCLE_CHECKED_MOVE + 1 and self.saver is not None:
+            seen.update(envs=prev, post=self.envs, stats=st)
+        if len(times) == CYCLE_MOVES - 1 and self.saver is not None:
+            # every tree resets on move 20 at this width (a tree fills its
+            # pool in 5 moves), so the dump at the end is empty: dump here
+            seen["dump"] = os.path.join(os.path.dirname(self.saver.path), "tree_move19.npz")
+            self.save_nodes(seen["dump"])
+            seen["harvested"] = int(T.harvest(self.trees, 1)[4].sum())
+        return st
+
+    def timed_columns(self, *a):
+        t0 = time.perf_counter()
+        cols = columns(self, *a)
+        columns_s.append(time.perf_counter() - t0)
+        return cols
+
+    def timed_publish(self, *cols):
+        t0 = time.perf_counter()
+        publish(self, *cols)
+        publish_s.append(time.perf_counter() - t0)
+
+    def timed_train_data(self, *a, **k):
+        t0 = time.perf_counter()
+        hist = train_data(self, *a, **k)
+        session.update(seconds=time.perf_counter() - t0, iters=hist[-1][0] if hist else 0)
+        return hist
+
+    def host_ms(xs):
+        return float(np.median(xs[1:])) * 1e3  # the first move also builds and tunes
+
+    def med_ms(xs):
+        return float(np.median(xs)) * 1e3
+
+    SelfPlayDriver.step, SelfPlayDriver._publish = timed_step, timed_publish
+    SelfPlayDriver._publish_columns = timed_columns
+    StatusPublisher.publish = timed(status_publish, "status")
+    DataSaver.add_batch = timed(add_batch, "write")
+    VVModel.train_data = timed_train_data
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data, status = os.path.join(tmp, "data"), os.path.join(tmp, "status")
+            ckpt = os.path.join(tmp, "ck", "model.pt")
+            base = ["--agent_type", "ValueSimLP", "--benchmark", "--checkpoint", ckpt]
+            times.clear()
+            reset_launches()
+            sims = play.main(base + ["--max_moves", str(CYCLE_MOVES)]).cfg.sims
+            check_launches("cycle play (no saver)", read_launches(),
+                           {k: CYCLE_MOVES * sims for k in
+                            ("select_walk", "insert7_walk", "lp_backup_walk")})
+            plain = list(times)
+            times.clear()
+            reset_launches()
+            t_run = time.perf_counter()
+            driver = play.main(base + ["--max_moves", str(CYCLE_MOVES), "--save", "--save_dir",
+                                       data, "--save_tree", "--status_dir", status])
+            run_s = time.perf_counter() - t_run
+            launches = read_launches()
+            want = CYCLE_MOVES * driver.cfg.sims
+            check_launches("cycle play --save", launches,
+                           {"select_walk": want, "insert7_walk": want, "lp_backup_walk": want})
+            saving = list(times)
+            B = driver.cfg.batch
+            rows = DataLoader(os.path.join(data, "data0.rec"))
+            if len(rows) != CYCLE_MOVES * B:
+                raise AssertionError(f"cycle: {len(rows)} saved rows, want {CYCLE_MOVES * B}")
+            # the checked move's rows against what the driver had on the card
+            m = slice(CYCLE_CHECKED_MOVE * B, (CYCLE_CHECKED_MOVE + 1) * B)
+            pre, post = (engine.unpack_state(seen[k]) for k in ("envs", "post"))
+            st = seen["stats"]
+            want_cols = {
+                "board": engine.get_state(pre), "combo": pre.combo, "score": pre.score,
+                "lines": pre.lines, "line_stats": pre.line_stats, "policy": st.probs,
+                "action": st.action, "child_stats": st.child_stats, "value": st.root_value,
+                "variance": st.root_var}
+            for k, x in want_cols.items():
+                got = torch.as_tensor(getattr(rows, k)[m])
+                if not torch.equal(got, x.cpu().to(got.dtype)):
+                    raise AssertionError(f"cycle: saved {k} of move {CYCLE_CHECKED_MOVE} differs "
+                                         "from the driver's values on the card")
+            if np.array_equal(rows.board[m], engine.get_state(post).cpu().numpy()):
+                raise AssertionError("cycle: the saved boards are the post-move boards")
+            if not (np.array_equal(rows.episode[:B], np.arange(B))
+                    and (rows.cycle == 0).all()):
+                raise AssertionError("cycle: episode ids or cycle column wrong")
+            live = StatusReader(status, batch=B).read()
+            if live is None or not np.array_equal(live["board"], rows.board[-B]):
+                raise AssertionError("cycle: the status board is not game 0's last board")
+            n_dump = []
+            for path in (os.path.join(data, "tree0.npz"), seen["dump"]):
+                dump = np.load(path)
+                n_dump.append(len(dump["game"]))
+                if (set(dump.files) != {"board", "value", "variance", "visit", "game"}
+                        or dump["board"].shape != (n_dump[-1], 20, 10)
+                        or not (dump["visit"] >= 1).all()
+                        or not np.isfinite(dump["value"]).all()):
+                    raise AssertionError(f"cycle: the tree dump {path} is malformed")
+            if n_dump[1] != seen["harvested"] or not n_dump[1]:
+                raise AssertionError(f"cycle: the move-19 dump holds {n_dump[1]} nodes, the "
+                                     f"trees {seen['harvested']}")
+            add_ms = host_ms(saving) - host_ms(plain)
+            own_ms = float(np.median(np.add(columns_s, publish_s))) * 1e3
+            say(f"phase cycle (lp, offline): play --save at B={B}, {driver.cfg.sims} sims: "
+                f"{len(rows)} rows over {CYCLE_MOVES} moves read back equal (move "
+                f"{CYCLE_CHECKED_MOVE}: pre-move boards, counters, policy, action, child_stats, "
+                f"value, variance as on the card); launches {launches}; tree dump "
+                f"{n_dump[0]} nodes at the end, {n_dump[1]} after move 19 (= the trees' "
+                f"observations with a visit); status board = game 0's last ({smi})")
+            say(f"  saver: {add_ms:.3f} ms of host time added a move (median move "
+                f"{host_ms(saving):.3f} ms with --save vs {host_ms(plain):.3f} ms without, "
+                f"two runs); its own host code {own_ms:.3f} ms a move (medians: issuing its "
+                f"columns {med_ms(columns_s):.3f}, the host side {med_ms(publish_s):.3f}, of "
+                f"it the record write {med_ms(part_s['write']):.3f} and the status memmaps "
+                f"{med_ms(part_s['status']):.3f}, the rest the unpacking; the shared read "
+                f"aside); {len(rows) / run_s:.1f} rows/s over the saving run's {run_s:.2f}s, "
+                f"{len(rows) / (sum(publish_s) + sum(columns_s)):.1f} rows/s through its own "
+                "code")
+
+            # the offline session on those rows, on the card
+            loss_dir = os.path.join(tmp, "loss")
+            t_train = time.perf_counter()
+            hist = train.main(["--device", "cuda", "--data", os.path.join(data, "data*.rec"),
+                               "--td", "--weighted", "--weighted_mode", "1", "--early_stopping",
+                               "--validation", "--save_loss", loss_dir, "--max_iters",
+                               str(CYCLE_TRAIN_ITERS), "--checkpoint", ckpt, "--dump_dir",
+                               os.path.join(tmp, "dump")])
+            train_s = time.perf_counter() - t_train
+            loss = LossLoader(os.path.join(loss_dir, "loss0.rec"))
+            if not os.path.isfile(ckpt) or loss.n != len(hist) or not hist:
+                raise AssertionError("cycle: train wrote no checkpoint or no loss0.rec")
+            if not all(np.isfinite(h[1]) and np.isfinite(h[2]) for h in hist):
+                raise AssertionError("cycle: non-finite losses in the session")
+            say(f"  train: {session['iters']} steps in {session['seconds']:.2f}s of session "
+                f"({session['iters'] / session['seconds']:.1f} steps/s; cap "
+                f"{CYCLE_TRAIN_ITERS}), {train_s:.2f}s for the command; last window loss "
+                f"train {hist[-1][1]:.4f} val {hist[-1][2]:.4f}; loss0.rec {loss.n} rows ({smi})")
+
+            # self-play with the trained net
+            fixed = torch.as_tensor(np.random.RandomState(11).randint(-1, 2, (64, 1, 20, 10)),
+                                    dtype=torch.float32, device="cuda")
+            seed_out = VVModel(0, "cuda").apply_fn()(fixed)
+            reset_launches()
+            trained = play.main(base + ["--max_moves", "5", "--load_model"])
+            check_launches("cycle play --load_model", read_launches(),
+                           {k: 5 * trained.cfg.sims for k in
+                            ("select_walk", "insert7_walk", "lp_backup_walk")})
+            change = max(float((a - b).abs().max())
+                         for a, b in zip(trained.model.apply_fn()(fixed), seed_out))
+            if not change > 0:
+                raise AssertionError("cycle: the loaded net's outputs equal the seed net's")
+            say(f"  play --load_model: 5 moves, {5 * trained.cfg.sims} launches of each walk; "
+                f"outputs on 64 fixed boards moved by up to {change:.4f} from the seed net's")
+            cycle.main(["--dry_run", "--iters", "2", "--data_dir", os.path.join(tmp, "cyc"),
+                        "--device", "cuda", "--checkpoint", ckpt])
+    finally:
+        SelfPlayDriver.step, SelfPlayDriver._publish = step, publish
+        SelfPlayDriver._publish_columns = columns
+        StatusPublisher.publish, DataSaver.add_batch = status_publish, add_batch
+        VVModel.train_data = train_data
+    say(f"phase cycle took {time.perf_counter() - t:.1f}s")
 
 
 def walk_edges(torch, tree_walk, T, B=67):

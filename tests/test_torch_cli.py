@@ -1,11 +1,18 @@
-"""The port's `play` CLI and driver on the CPU: a tiny run plays whole
-episodes and logs them in the reference's "Episode:" format, for every
-agent type the port runs; a tiny online run of each training agent trains,
-writes its checkpoint and metrics, and `--load_model` brings the net back;
-a reference flag or agent type the port does not support is refused by
-name."""
+"""The port's `play`, `train` and `cycle` CLIs and the driver on the CPU:
+a tiny run plays whole episodes and logs them in the reference's
+"Episode:" format, for every agent type the port runs; a tiny online run
+of each training agent trains, writes its checkpoint and metrics, and
+`--load_model` brings the net back; a reference flag or agent type the port
+does not support is refused by name. The channels and modes of `play`
+(`--printboard` and `--interactive` against the JAX package's output,
+`--endless`, `--low`, `--save_tree`, `--trace`), `train` on saved rows,
+the `cycle` plan against the JAX package's, and one real cycle iteration.
+"""
 
+import os
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +25,7 @@ torch.set_num_threads(1)
 
 TINY = ["--device", "cpu", "--batch", "2", "--mcts_sims", "2", "--max_nodes", "64",
         "--max_obs", "64", "--max_depth", "6", "--seed", "3"]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_play_runs_episodes_on_cpu(capsys):
@@ -30,7 +38,7 @@ def test_play_runs_episodes_on_cpu(capsys):
     assert driver.score_tracker.n == driver.episodes
 
 
-@pytest.mark.parametrize("flag", ["--save", "--status_dir=x"])
+@pytest.mark.parametrize("flag", ["--ensemble=2", "--allow_clamp"])
 def test_play_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         play.main(TINY + [flag])
@@ -128,3 +136,235 @@ def test_play_online_benchmark_channel_and_acc_policy(tmp_path):
     bench = reader.of_kind("benchmark")
     assert len(bench) == driver._bench_round and bench[0]["games"] == 1
     assert len(reader.of_kind("train_session")) == driver.n_trains
+
+
+# ---------------------------------------------------------------------------
+# play's channels and modes
+# ---------------------------------------------------------------------------
+
+def test_printboard_prints_the_jax_render_of_the_pre_move_board(tmp_path, capsys):
+    from tetris_mcts_tpu.cli.replay import render as jax_render
+    from tetris_mcts_tpu_torch.utils.data import DataLoader
+
+    play.main(TINY + ["--printboard", "--save", "--save_dir", str(tmp_path), "--ngames", "1",
+                      "--max_moves", "3"])
+    out = capsys.readouterr().out
+    rows = DataLoader(str(tmp_path / "data0.rec"))
+    want = "".join(jax_render(rows.board[i], int(rows.score[i]), int(rows.lines[i]),
+                              int(rows.combo[i])) + "\n" for i in range(0, 6, 2))
+    assert out == want
+
+
+def test_interactive_plays_from_stdin_as_jax(monkeypatch, capsys):
+    from tetris_mcts_tpu.cli import play as jax_play
+
+    def player():
+        """An out-of-range action, three moves, then hard drops until the
+        game ends; "y" to "Play more?", then a word that is not an action,
+        which ends the loop on the second game's first board."""
+        said = {"more": False, "moves": 0}
+        script = ["9", "1", "5", "3"]
+
+        def answer(prompt=""):
+            if prompt.startswith("Play more"):
+                said["more"] = True
+                return "y"
+            if said["more"]:
+                return "x"
+            said["moves"] += 1
+            return script[said["moves"] - 1] if said["moves"] <= len(script) else "6"
+        return answer
+
+    outs = []
+    for main in (lambda: play.main(["--interactive", "--device", "cpu", "--seed", "3"]),
+                 lambda: jax_play.interactive_loop(
+                     jax_play.build_parser().parse_args(["--interactive", "--seed", "3"]))):
+        monkeypatch.setattr("builtins.input", player())
+        assert main() == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+    assert outs[0].count("Game over") == 1
+    assert outs[0].split("Game over")[1].count("score 0   lines 0") == 1  # a new game
+
+
+def test_endless_runs_until_interrupted_then_saves(tmp_path, monkeypatch, capsys):
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
+    from tetris_mcts_tpu_torch.utils.data import DataLoader
+
+    step = SelfPlayDriver.step
+    calls = []
+
+    def interrupted_step(self):
+        calls.append(1)
+        if len(calls) == 4:
+            raise KeyboardInterrupt
+        return step(self)
+
+    monkeypatch.setattr(SelfPlayDriver, "step", interrupted_step)
+    ckpt = tmp_path / "ck.pt"
+    driver = play.main(TINY + ONLINE[:-4] + ["--endless", "--ngames", "0", "--save",
+                                             "--save_dir", str(tmp_path), "--checkpoint",
+                                             str(ckpt)])
+    assert driver.moves == 3 and "interrupted" in capsys.readouterr().err
+    assert ckpt.is_file()  # the final save ran
+    assert len(DataLoader(str(tmp_path / "data0.rec"))) == 3 * 2
+
+
+@pytest.mark.parametrize("agent", ["ValueSim", "Vanilla", "ValueSimBayes"])
+def test_low_overrides_the_agent_default(agent):
+    driver = play.main(TINY + ["--agent_type", agent, "--low", "3", "--ngames", "0"])
+    assert driver.cfg.low == 3
+
+
+def test_value_sim_c_runs_the_lp_evaluator_and_trains(tmp_path):
+    driver = play.main(TINY + ONLINE + ["--agent_type", "ValueSimC", "--checkpoint",
+                                        str(tmp_path / "ck.pt")])
+    assert driver.cfg.evaluator == "lp" and not driver.cfg.benchmark
+    assert driver.n_trains >= 1 and (tmp_path / "ck.pt").is_file()
+
+
+def test_save_tree_dumps_the_trees(tmp_path):
+    driver = play.main(TINY + ["--save_tree", "--save_dir", str(tmp_path), "--cycle", "4",
+                               "--ngames", "1", "--max_moves", "2"])
+    dump = np.load(tmp_path / "tree4.npz")
+    n = len(dump["game"])
+    assert n > 0 and dump["board"].shape == (n, 20, 10) and dump["board"].dtype == np.int8
+    assert set(dump["game"].tolist()) <= {0, 1} and (dump["visit"] >= 1).all()
+    from tetris_mcts_tpu_torch.search import tree as T
+
+    assert n == int(T.harvest(driver.trees, 1)[4].sum())
+
+
+def test_trace_writes_a_chrome_trace_and_no_checkpoint(tmp_path, capsys):
+    ckpt = tmp_path / "ck.pt"
+    driver = play.main(TINY + ONLINE + ["--trace", str(tmp_path / "tr"), "--trace_moves", "2",
+                                        "--checkpoint", str(ckpt)])
+    assert driver.moves == 4  # 2 warm-up moves, then the 2 traced
+    trace = tmp_path / "tr" / "trace.json"
+    assert trace.is_file() and '"traceEvents"' in trace.read_text()
+    assert not ckpt.exists()
+    assert "Trace of 2 moves written" in capsys.readouterr().err
+
+
+def test_stall_watchdog_is_on_by_default_and_stopped_after(monkeypatch):
+    from tetris_mcts_tpu_torch.runtime import watchdog
+
+    seen, stop = [], watchdog.StallWatchdog.stop
+    monkeypatch.setattr(watchdog.StallWatchdog, "stop", lambda self: (
+        seen.append((self.stall_timeout, self.startup_timeout)), stop(self)))
+    driver = play.main(TINY + ["--ngames", "0"])
+    assert seen == [(900.0, 3600.0)] and watchdog.get_active() is None
+    assert driver._watchdog is not None
+    assert play.main(TINY + ["--ngames", "0", "--stall_timeout", "0"])._watchdog is None
+
+
+# ---------------------------------------------------------------------------
+# train and cycle
+# ---------------------------------------------------------------------------
+
+def test_train_on_saved_rows_then_play_the_trained_net(tmp_path, capsys):
+    from tetris_mcts_tpu_torch.cli import train
+    from tetris_mcts_tpu_torch.utils.data import LossLoader
+
+    play.main(TINY + ["--batch", "4", "--save", "--save_dir", str(tmp_path / "data"),
+                      "--ngames", "50", "--max_moves", "10"])
+    ckpt = str(tmp_path / "ck" / "m.pt")
+    hist = train.main(["--device", "cpu", "--data", str(tmp_path / "data" / "data*.rec"),
+                       "--td", "--weighted", "--weighted_mode", "1", "--early_stopping",
+                       "--validation", "--iters_per_val", "5", "--max_iters", "20",
+                       "--batch_size", "8", "--save_loss", str(tmp_path / "loss"),
+                       "--checkpoint", ckpt, "--dump_dir", str(tmp_path / "dump")])
+    out = capsys.readouterr().out
+    assert "Loaded 40 rows from 1 file(s)" in out and "Saving model..." in out
+    loss = LossLoader(str(tmp_path / "loss" / "loss0.rec"))
+    assert loss.n == len(hist) and list(loss.iteration) == [h[0] for h in hist]
+    boards = torch.as_tensor(np.random.RandomState(0).randint(-1, 2, (8, 1, 20, 10)),
+                             dtype=torch.float32)
+    seed_net = play.main(TINY + ["--ngames", "0"]).model.apply_fn()(boards)
+    trained = play.main(TINY + ["--ngames", "0", "--load_model", "--checkpoint", ckpt])
+    assert not torch.equal(trained.model.apply_fn()(boards)[0], seed_net[0])
+
+
+@pytest.mark.parametrize("flag", ["--model=vp", "--ensemble=2"])
+def test_train_refuses_unported_models(flag, capsys):
+    from tetris_mcts_tpu_torch.cli import train
+
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--device", "cpu", flag])
+    assert exc.value.code == 2
+    assert f"{flag.replace('=', ' ')} is not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["play", "train", "cycle"])
+def test_cuda_default_refused_without_a_card(cmd, monkeypatch, capsys):
+    from tetris_mcts_tpu_torch.cli import cycle, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        {"play": play.main, "train": train.main, "cycle": cycle.main}[cmd]([])
+    assert exc.value.code == 2 and "no CUDA device" in capsys.readouterr().err
+
+
+def normalised_plan(text):
+    """A cycle plan's commands, the port's names mapped to the JAX
+    package's: module, file suffix, quoting and the --device flag."""
+    text = text.replace("tetris_mcts_tpu_torch.", "tetris_mcts_tpu.").replace(".rec", ".h5")
+    text = text.replace("'", "")  # the port quotes a glob for the shell
+    return [ln.replace(" --device cpu", "") for ln in text.splitlines()]
+
+
+@pytest.mark.parametrize("data", [False, True], ids=["fresh", "with_data"])
+def test_cycle_dry_run_plan_matches_jax(tmp_path, capsys, data):
+    from tetris_mcts_tpu.cli import cycle as jax_cycle
+    from tetris_mcts_tpu_torch.cli import cycle
+
+    args = ["--iters", "2", "--n_workers", "2", "--dry_run", "--checkpoint", "ck", "--resume"]
+    plans = []
+    for main, suffix, extra in ((cycle.main, ".rec", ["--device", "cpu"]),
+                                (jax_cycle.main, ".h5", [])):
+        d = tmp_path / suffix[1:]
+        if data:  # cycle 0 saved: the plan resumes at cycle 1, with training
+            (d / "self0").mkdir(parents=True)
+            (d / "self0" / f"data0{suffix}").touch()
+        main(args + extra + ["--data_dir", str(d)])
+        plans.append(normalised_plan(capsys.readouterr().out.replace(str(d), "D")))
+    assert plans[0] == plans[1]
+    assert sum("cli.play" in ln for ln in plans[0]) == (3 if data else 6)
+    assert any("cli.train" in ln for ln in plans[0]) == data
+
+
+def test_cycle_refuses_unported_agent_types(capsys):
+    from tetris_mcts_tpu_torch.cli import cycle
+
+    with pytest.raises(SystemExit) as exc:
+        cycle.main(["--agent_type", "ApproxPolicyIter", "--dry_run"])
+    assert exc.value.code == 2
+    assert "--agent_type ApproxPolicyIter is not ported" in capsys.readouterr().err
+
+
+def test_cycle_runs_one_iteration_on_cpu(tmp_path):
+    """One real iteration (cycle 1, resumed after a saved cycle 0): train on
+    the saved rows, one self-play run that saves, one benchmark run."""
+    from tetris_mcts_tpu_torch.cli import cycle
+    from tetris_mcts_tpu_torch.utils.data import DataLoader, LossLoader
+
+    data = tmp_path / "data"
+    play.main(TINY + ["--batch", "4", "--save", "--save_dir", str(data / "self0"),
+                      "--ngames", "50", "--max_moves", "6"])
+    assert cycle.last_cycle(str(data)) == 0
+    ckpt = tmp_path / "ck.pt"
+    res = subprocess.run(
+        [sys.executable, "-m", "tetris_mcts_tpu_torch", "cycle", "--device", "cpu",
+         "--resume", "--iters", "2", "--data_dir", str(data), "--batch", "2",
+         "--train_sims", "2", "--bench_sims", "2", "--bench_games", "1", "--ngames", "50",
+         "--checkpoint", str(ckpt),
+         "--train_args", "--iters_per_val 5 --max_iters 10 --batch_size 8 --dump_dir "
+         + str(tmp_path / "dump"),
+         "--play_args", "--max_nodes 64 --max_obs 64 --max_depth 6 --max_moves 4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "=== cycle 1 ===" in res.stdout and "=== cycle 0 ===" not in res.stdout
+    assert ckpt.is_file() and LossLoader(str(data / "loss" / "loss1.rec")).n >= 1
+    assert len(DataLoader(str(data / "self0" / "data1.rec"))) == 4 * 2
+    assert cycle.last_cycle(str(data)) == 1
+    assert (data / "bench_metrics.jsonl").is_file()

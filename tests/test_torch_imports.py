@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the JAX package: its modules and
-chip_smoke.py are checked by their import statements, and the package is
-imported in a fresh interpreter where `jax` cannot be imported."""
+"""The port imports neither JAX nor the JAX package, nor h5py (the card's
+machine has none): its modules and chip_smoke.py are checked by their
+import statements, and the package is imported in a fresh interpreter
+where `jax`, the JAX package and `h5py` cannot be imported."""
 
 import ast
 import pathlib
@@ -10,7 +11,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "triton", "tetris_mcts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "h5py", "triton",
+             "tetris_mcts_tpu")
 SOURCES = sorted((ROOT / "tetris_mcts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -31,20 +33,22 @@ def test_no_forbidden_imports(path):
 
 def test_kernel_modules_are_checked():
     """Every module that wraps a kernel, the move program that drives
-    them, and the training, replay and metrics modules of online self-play
-    are among the sources checked above."""
+    them, the training, replay and metrics modules of online self-play,
+    and the offline cycle's savers, watchdog and commands are among the
+    sources checked above."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py", "ops/bench_walk.py",
                 "search/mcts.py", "search/tree.py", "runtime/selfplay.py", "cli/play.py",
                 "models/losses.py", "models/nets.py", "train/optim.py", "train/trainer.py",
-                "obs/metrics.py"):
+                "obs/metrics.py", "utils/data.py", "runtime/watchdog.py", "cli/train.py",
+                "cli/cycle.py", "cli/replay.py"):
         assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
 
 
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tetris_mcts_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'tetris_mcts_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import pkgutil, importlib, tetris_mcts_tpu_torch as p\n"
         "for mod in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"

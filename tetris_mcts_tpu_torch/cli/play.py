@@ -5,7 +5,8 @@ Mirrors the reference `cli/play.py` for the agent types whose evaluator
 is ported (`AGENT_TYPES`, the reference's agent -> (evaluator, trains)
 map):
 
-- ValueSimLP: the lp evaluator (the net on the leaf's 7 children), trains;
+- ValueSimLP, ValueSimC: the lp evaluator (the net on the leaf's 7
+  children), train;
 - ValueSim, ValueSimOnline: the leaf evaluator (the net on the leaf),
   train; ValueSimBayes: the leaf evaluator under `--policy bayes`, no
   training;
@@ -16,10 +17,22 @@ Training runs as in the reference: when the agent trains and `--online`
 is given and `--benchmark` is not. It then saves the model after every
 session and at the end (`--checkpoint`, default
 `train/trainer.DEFAULT_CKPT`, the port's own format); `--load_model`
-reads it first. `low` follows the reference: 10 under bayes, 5 for
-Vanilla/VanillaC, else 1. The reference's other agent types, and any
+reads it first. `--low` defaults as in the reference: 10 under bayes, 5
+for Vanilla/VanillaC, else 1. The reference's other agent types, and any
 reference flag this port does not read, are refused with a message that
 names them.
+
+Channels: `--save` writes one row a game a move to
+`{save_dir}/{save_file}{cycle}.rec` (`utils/data.DataSaver`),
+`--save_tree` the trees' searched observations to
+`{save_dir}/tree{cycle}.npz` at the end, `--status_dir` the live-state
+memmaps, `--printboard` game 0's board each move, `--metrics` a JSONL
+event log. `--endless` plays until interrupted (SIGINT or SIGTERM; the
+final saves run). A stall watchdog (`--stall_timeout`, on by default)
+exits with code 86 when the host loop makes no progress. `--trace DIR`
+profiles `--trace_moves` moves after 2 warm-up moves into a Chrome trace
+and saves no checkpoint. `--interactive` plays one game from actions
+typed on stdin.
 
     python -m tetris_mcts_tpu_torch play --agent_type ValueSimLP --online
 """
@@ -27,6 +40,8 @@ names them.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import signal
 import sys
 
@@ -40,14 +55,14 @@ from tetris_mcts_tpu_torch.train.trainer import DEFAULT_CKPT
 
 # agent type -> (evaluator, trains), for the agents the port runs
 AGENT_TYPES = {
-    "ValueSimLP": ("lp", True),
+    "ValueSimLP": ("lp", True), "ValueSimC": ("lp", True),
     "ValueSim": ("leaf", True), "ValueSimOnline": ("leaf", True),
     "ValueSimBayes": ("leaf", False),
     "Vanilla": ("rollout", False), "VanillaC": ("rollout", False),
     "Random": ("rollout", False),
 }
 # the reference CLI's other agent types, not ported yet
-UNPORTED_AGENT_TYPES = ("ValueSimC", "ApproxPolicyIter", "DistValueSim",
+UNPORTED_AGENT_TYPES = ("ApproxPolicyIter", "DistValueSim",
                         "HybridSim", "FiniteSim", "FullSim", "ValueSim2",
                         "DQN", "DistDQN")
 
@@ -62,15 +77,32 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=tuple(AGENT_TYPES) + UNPORTED_AGENT_TYPES)
     p.add_argument("--mcts_sims", type=int, default=100)
     p.add_argument("--ngames", type=int, default=50)
+    p.add_argument("--endless", action="store_true",
+                   help="play until interrupted (the final saves run)")
     p.add_argument("--benchmark", action="store_true",
                    help="no training, no storage")
     p.add_argument("--online", action="store_true",
                    help="online training (for the agents that train)")
+    p.add_argument("--save", action="store_true",
+                   help="save one row a game a move to save_dir/save_file<cycle>.rec")
+    p.add_argument("--save_tree", action="store_true",
+                   help="dump the trees' searched observations to "
+                        "save_dir/tree<cycle>.npz at the end")
+    p.add_argument("--printboard", action="store_true",
+                   help="print game 0's board each move")
+    p.add_argument("--interactive", action="store_true",
+                   help="play one game from actions 0-6 typed on stdin (no agent)")
+    p.add_argument("--save_dir", default="./data")
+    p.add_argument("--save_file", default="data")
+    p.add_argument("--cycle", type=int, default=0)
     p.add_argument("--app", type=int, default=1)
     p.add_argument("--scoring", type=int, default=0, choices=(0, 1))
     p.add_argument("--randomizer", type=int, default=0, choices=(0, 1))
     p.add_argument("--gamma", type=float, default=0.999)
     p.add_argument("--policy", default="clt", choices=POLICIES)
+    p.add_argument("--low", type=int, default=None,
+                   help="visits under which children are chosen first, before the "
+                        "policy (default: 10 under bayes, 5 for Vanilla/VanillaC, else 1)")
     p.add_argument("--dump_dir", default="",
                    help="write dump.npz of each session's training set here "
                         "('' = off)")
@@ -109,13 +141,97 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_max_iters", type=int, default=50000)
     p.add_argument("--max_moves", type=int, default=10_000_000)
     p.add_argument("--metrics", default="", help="JSONL metrics path ('' = off)")
+    p.add_argument("--status_dir", default="",
+                   help="publish the live-state memmaps here ('' = off)")
+    p.add_argument("--trace", default="",
+                   help="profile --trace_moves moves after 2 warm-up moves into a Chrome "
+                        "trace in this directory, then stop ('' = off)")
+    p.add_argument("--trace_moves", type=int, default=4)
+    p.add_argument("--stall_timeout", type=float, default=900,
+                   help="seconds without host-loop progress before the stall watchdog "
+                        "exits with code 86 (0 = off)")
+    p.add_argument("--stall_startup", type=float, default=3600,
+                   help="the watchdog's allowance at startup, at a training session and "
+                        "at the benchmark twin's first move")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 conv/fc body in the search forward")
     p.add_argument("--device", default="cuda")
     return p
 
 
+def interactive_loop(args) -> int:
+    """One game (and more on request) from actions 0-6 typed on stdin,
+    with the board printed before each; no agent."""
+    from tetris_mcts_tpu_torch.cli.replay import render
+    from tetris_mcts_tpu_torch.env import engine
+
+    cfg = engine.EnvConfig(actions_per_drop=args.app, scoring=args.scoring,
+                           randomizer=args.randomizer)
+    envs = engine.reset_batch(args.seed, 1, cfg, device=args.device)
+    names = "0 noop  1 left  2 right  3 soft  4 ccw  5 cw  6 hard"
+    games = 0
+
+    def show(s):
+        print(render(engine.get_state(s)[0].cpu().numpy(), int(s.score[0]),
+                     int(s.lines[0]), int(s.combo[0])))
+
+    while True:
+        show(envs)
+        try:
+            action = int(input(f"Play ({names}): "))
+        except (ValueError, EOFError):
+            return 0
+        if not 0 <= action <= 6:
+            continue
+        envs = engine.step_batch(envs, torch.full((1,), action, device=args.device), cfg)
+        if bool(envs.end[0]):
+            show(envs)
+            print(f"Game over — score {int(envs.score[0])}, lines {int(envs.lines[0])}")
+            try:
+                if input("Play more? (y/n): ").strip() != "y":
+                    return 0
+            except EOFError:
+                return 0
+            games += 1
+            envs = engine.reset_batch(args.seed + games, 1, cfg, device=args.device)
+
+
+class _PrintBoard:
+    """--printboard: a status channel that prints game 0's pre-move board
+    and passes the publish on to an optional inner StatusPublisher."""
+
+    def __init__(self, inner=None):
+        self.inner = inner
+
+    def publish(self, board, combo, score, lines, line_stats):
+        if self.inner is not None:
+            self.inner.publish(board, combo, score, lines, line_stats)
+        from tetris_mcts_tpu_torch.cli.replay import render
+
+        print(render(board, int(score[0]), int(lines[0]), int(combo[0])), flush=True)
+
+
+def capture_trace(driver, directory: str, moves: int, device):
+    """2 warm-up moves, then `moves` moves under torch.profiler (the card's
+    kernels too on a card), written as a Chrome trace into `directory`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        driver.step()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for _ in range(moves):
+            driver.step()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Trace of {moves} moves written to {path}", file=sys.stderr)
+
+
 def main(argv=None):
+    from tetris_mcts_tpu_torch.runtime import watchdog
     from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, SelfPlayDriver
     from tetris_mcts_tpu_torch.train.trainer import VVModel
 
@@ -132,10 +248,14 @@ def main(argv=None):
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to run the plain versions)")
+    if args.interactive:
+        return interactive_loop(args)
     evaluator, trains = AGENT_TYPES[args.agent_type]
     if args.agent_type == "ValueSimBayes":
         args.policy = "bayes"  # the agent is the policy choice
-    if args.policy == "bayes":
+    if args.low is not None:
+        low = args.low
+    elif args.policy == "bayes":
         low = 10  # select_index_bayes min_n
     elif args.agent_type in ("Vanilla", "VanillaC"):
         low = 5   # Vanilla.py low=5
@@ -144,6 +264,8 @@ def main(argv=None):
     # online training iff the agent trains, --online is set, and not
     # --benchmark (the reference's gating)
     benchmark = args.benchmark or not (trains and args.online)
+    # a --trace run is a profiling probe: it never writes a checkpoint
+    saves_model = trains and not benchmark and not args.trace
     cfg = SelfPlayConfig(
         batch=args.batch, sims=1 if args.agent_type == "Random" else args.mcts_sims,
         evaluator=evaluator,
@@ -164,34 +286,61 @@ def main(argv=None):
         benchmark_max_moves=args.benchmark_max_moves,
         benchmark_max_nodes=args.benchmark_max_nodes,
         episode_reuse=bool(args.episode_reuse), bf16=args.bf16,
-        checkpoint_each_train=trains and not benchmark,
+        checkpoint_each_train=saves_model,
         dump_dir=args.dump_dir, seed=args.seed, actions_per_drop=args.app,
         scoring=args.scoring, randomizer=args.randomizer,
     )
-    model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint)
-    if args.load_model:
-        model.load()
-    metrics = None
-    if args.metrics:
-        from tetris_mcts_tpu_torch.obs.metrics import MetricsWriter
-        metrics = MetricsWriter(args.metrics)
-    driver = SelfPlayDriver(cfg, model=model, device=args.device, metrics=metrics)
+    # the final steps run last-registered first, each whatever the ones
+    # before it did: restore SIGTERM, dump the trees, save the model, close
+    # the saver, then the metrics, stop the watchdog
+    with contextlib.ExitStack() as finally_:
+        if args.stall_timeout > 0:
+            wd = watchdog.install(watchdog.StallWatchdog(
+                stall_timeout=args.stall_timeout, startup_timeout=args.stall_startup))
+            finally_.callback(watchdog.install, None)
+            finally_.callback(wd.stop)
+            wd.start()
+        model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint)
+        if args.load_model:
+            model.load()
+        saver = metrics = status = None
+        if args.metrics:
+            from tetris_mcts_tpu_torch.obs.metrics import MetricsWriter
+            metrics = MetricsWriter(args.metrics)
+            finally_.callback(metrics.close)
+        if args.save:
+            from tetris_mcts_tpu_torch.utils.data import DataSaver
+            saver = DataSaver(args.save_dir, args.save_file, cycle=args.cycle)
+            finally_.callback(saver.close)
+        if args.status_dir:
+            from tetris_mcts_tpu_torch.obs.metrics import StatusPublisher
+            status = StatusPublisher(args.status_dir, batch=args.batch)
+        if args.printboard:
+            status = _PrintBoard(status)
+        driver = SelfPlayDriver(cfg, model=model, device=args.device, metrics=metrics,
+                                saver=saver, status=status)
+        if saves_model:
+            finally_.callback(model.save, verbose=True)
+        if args.save_tree:
+            os.makedirs(args.save_dir, exist_ok=True)
+            finally_.callback(driver.save_nodes,
+                              os.path.join(args.save_dir, f"tree{args.cycle}.npz"))
 
-    # SIGTERM takes the interrupt path, so the final save runs
-    def _term(signum, frame):
-        raise KeyboardInterrupt
+        # SIGTERM takes the interrupt path, so the final steps run
+        def _term(signum, frame):
+            raise KeyboardInterrupt
 
-    prev_term = signal.signal(signal.SIGTERM, _term)
-    try:
-        driver.run_episodes(args.ngames, max_moves=args.max_moves)
-    except KeyboardInterrupt:
-        print("interrupted", file=sys.stderr)
-    finally:
-        signal.signal(signal.SIGTERM, prev_term)
-        if trains and not benchmark:
-            model.save(verbose=True)
-        if metrics is not None:
-            metrics.close()
+        finally_.callback(signal.signal, signal.SIGTERM, signal.signal(signal.SIGTERM, _term))
+        try:
+            if args.trace:
+                capture_trace(driver, args.trace, args.trace_moves, driver.device)
+            elif args.endless:
+                while True:
+                    driver.step()
+            else:
+                driver.run_episodes(args.ngames, max_moves=args.max_moves)
+        except KeyboardInterrupt:
+            print("interrupted", file=sys.stderr)
     return driver
 
 

@@ -1,7 +1,7 @@
-"""Structured metrics of a self-play run: an append-only JSONL event log
-(counterpart of the reference package's `obs/metrics.py` `MetricsWriter`
-and `MetricsReader`; its live-state memmaps, `StatusPublisher`, are not
-ported).
+"""Structured metrics of a self-play run (counterpart of the reference
+package's `obs/metrics.py`): an append-only JSONL event log
+(`MetricsWriter`, `MetricsReader`) and the live-state memmaps
+(`StatusPublisher`, `StatusReader`).
 
 Event kinds the online driver writes: `episode`, `throughput`,
 `train_session`, `benchmark` and `zero_storage_warning`. Every event
@@ -15,6 +15,9 @@ import json
 import math
 import os
 import time
+from typing import Optional
+
+import numpy as np
 
 
 def _next_run_id(path: str) -> int:
@@ -88,3 +91,50 @@ class MetricsReader:
 
     def of_kind(self, kind: str) -> list[dict]:
         return [e for e in self.events if e.get("kind") == kind]
+
+
+# the live-state files: name -> (dtype, shape for a batch of B games); the
+# reference's layout, so a reader of either package reads the other's
+_STATUS_FILES = {
+    "board": (np.int8, lambda b: (20, 10)),
+    "combo": (np.int32, lambda b: (b,)),
+    "score": (np.int64, lambda b: (b,)),
+    "lines": (np.int32, lambda b: (b,)),
+    "line_stats": (np.int32, lambda b: (b, 4)),
+}
+
+
+class StatusPublisher:
+    """Live-state memmaps in `tmp_dir`: game 0's board and every game's
+    combo, score, lines and line_stats, rewritten and flushed on every
+    `publish`."""
+
+    def __init__(self, tmp_dir: str = "./tmp", batch: int = 1):
+        os.makedirs(tmp_dir, exist_ok=True)
+        self.batch = batch
+        self._m = {name: np.memmap(os.path.join(tmp_dir, name), dt, "w+", shape=shape(batch))
+                   for name, (dt, shape) in _STATUS_FILES.items()}
+
+    def publish(self, board0, combo, score, lines, line_stats):
+        for name, x in (("board", board0), ("combo", combo), ("score", score),
+                        ("lines", lines), ("line_stats", line_stats)):
+            self._m[name][:] = np.asarray(x, _STATUS_FILES[name][0])
+        for m in self._m.values():
+            m.flush()
+
+
+class StatusReader:
+    """A poller of a StatusPublisher's files; `read` gives None while they
+    are missing or short."""
+
+    def __init__(self, tmp_dir: str = "./tmp", batch: int = 1):
+        self.tmp_dir = tmp_dir
+        self.batch = batch
+
+    def read(self) -> Optional[dict]:
+        try:
+            return {name: np.array(np.memmap(os.path.join(self.tmp_dir, name), dt, "r",
+                                             shape=shape(self.batch)))
+                    for name, (dt, shape) in _STATUS_FILES.items()}
+        except (FileNotFoundError, ValueError):
+            return None

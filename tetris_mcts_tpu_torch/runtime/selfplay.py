@@ -31,6 +31,16 @@ place and rescales `ubound`, and the next move's forward reads both. A
 benchmark channel (`benchmark_every`) plays rounds of games on a twin
 driver in benchmark mode that shares the model. Metrics go to an optional
 `obs.metrics.MetricsWriter`.
+
+Per-move channels, fed from the env state BEFORE the move (the board the
+policy, action and value were computed from): a `utils.data.DataSaver`
+(`saver`, one row a game a move, tagged with the game's episode id) and a
+`obs.metrics.StatusPublisher` (`status`). Their columns ride on the move's
+one host read. `save_nodes` dumps every tree's searched observations.
+
+A stall watchdog installed process-wide (`runtime/watchdog.install`) is
+beaten on every move and every log line, and given a grace window at the
+start of a training session and before the benchmark twin's first move.
 """
 
 from __future__ import annotations
@@ -45,7 +55,10 @@ import torch
 
 from tetris_mcts_tpu_torch.env import engine
 from tetris_mcts_tpu_torch.env.engine import EnvConfig
+from tetris_mcts_tpu_torch.ops import env_packed as EP
+from tetris_mcts_tpu_torch.runtime import watchdog
 from tetris_mcts_tpu_torch.search import mcts
+from tetris_mcts_tpu_torch.search import tree as T
 from tetris_mcts_tpu_torch.search.mcts import SearchConfig
 from tetris_mcts_tpu_torch.search.tree import TreeConfig
 from tetris_mcts_tpu_torch.train.trainer import VVModel
@@ -129,10 +142,22 @@ class _OnlineDriverBase:
     _TP_REPORT_EVERY = 50    # moves per throughput report, or a window of
     _TP_REPORT_SECONDS = 25  # >= 4 moves older than this (sessions restart it)
 
-    def _init_bookkeeping(self, cfg: SelfPlayConfig, log, metrics):
+    def _init_bookkeeping(self, cfg: SelfPlayConfig, log, metrics, saver=None,
+                          status=None):
         self.cfg = cfg
+        # an installed stall watchdog is beaten by every log line; the
+        # benchmark twin inherits the wrapped log
+        self._watchdog = watchdog.get_active()
+        if self._watchdog is not None:
+            log = self._watchdog.wrap_log(log)
         self.log = log
         self.metrics = metrics
+        self.saver = saver
+        self.status = status
+        # per-lane episode ids of the saver's rows; a finished lane takes
+        # the next id
+        self._ep_id = np.arange(cfg.batch, dtype=np.int64)
+        self._next_ep = cfg.batch
         self.episodes = 0
         self.moves = 0
         self.score_tracker = EpisodeTracker()
@@ -200,20 +225,30 @@ class _OnlineDriverBase:
                     live_lines_max=None if ll is None else int(np.max(ll)))
         self._restart_throughput()
 
-    def _after_move(self, stats):
+    def _after_move(self, stats, envs_prev):
         """Host bookkeeping of one move, on ONE read from the device: the
-        games' done/score/lines and the ring's total and cand counters."""
+        games' done/score/lines and the ring's total and cand counters, and
+        the saver's and status's columns when either is set."""
         self.moves += 1
+        if self._watchdog is not None:
+            self._watchdog.beat()
         self.last_stats = stats
         B = stats.done.shape[0]
         rep = self.replay
-        host = torch.cat([
+        parts = [torch.cat([
             torch.stack([stats.done.to(torch.int64), stats.score.to(torch.int64),
                          stats.lines.to(torch.int64)]).reshape(-1),
-            torch.stack([rep.total, rep.cand]).to(torch.int64)]).cpu().numpy()
+            torch.stack([rep.total, rep.cand]).to(torch.int64)])]
+        publish = self.saver is not None or self.status is not None
+        if publish:
+            parts += self._publish_columns(stats, envs_prev)
+        fetched = _host_read(parts)
+        host = fetched[0]
         done, score, lines = host[:B] != 0, host[B:2 * B], host[2 * B:3 * B]
         total, cand = int(host[3 * B]), int(host[3 * B + 1])
         self._live_lines = lines
+        if publish:
+            self._publish(*fetched[1:])
         self._report_throughput()
         self._finish_episodes(done, score, lines)
         if not self.cfg.benchmark:
@@ -224,9 +259,40 @@ class _OnlineDriverBase:
             self._maybe_benchmark()
         return stats
 
+    def _publish_columns(self, stats, envs):
+        """The saver's and status's columns on the device: the pre-move
+        packed states envs (B, 44) int32 (unpacked on the host, where a
+        few dozen small ops cost less than their launches), float32 (B, 30)
+        policy, child_stats, value and variance, and int32 (B,) action."""
+        cs, var = self._saver_extras(stats)
+        floats = torch.cat([stats.probs, cs.reshape(cs.shape[0], -1),
+                            stats.root_value[:, None], var[:, None]], 1).to(torch.float32)
+        return [envs, floats, stats.action.to(torch.int32)]
+
+    def _publish(self, envs, floats, action):
+        """Hand one move's rows to the saver and game 0's board with every
+        game's counters to the status channel (host arrays of
+        `_publish_columns`)."""
+        envs = torch.from_numpy(envs)
+        c = {k: v.numpy() for k, v in EP.unpack_columns(envs).items()}
+        boards = engine.unpack_obs(EP.packed_obs(envs)).numpy()
+        if self.saver is not None:
+            B = floats.shape[0]
+            self.saver.add_batch(
+                episode=self._ep_id.copy(), board=boards, policy=floats[:, :7],
+                action=action, combo=c["combo"], lines=c["lines"],
+                line_stats=c["line_stats"], score=c["score"],
+                child_stats=floats[:, 7:28].reshape(B, 3, 7), value=floats[:, 28],
+                variance=floats[:, 29])
+        if self.status is not None:
+            self.status.publish(boards[0], c["combo"], c["score"], c["lines"],
+                                c["line_stats"])
+
     def _finish_episodes(self, done, score, lines):
         for i in np.nonzero(done)[0]:
             self.episodes += 1
+            self._ep_id[i] = self._next_ep
+            self._next_ep += 1
             self.score_tracker.add(float(score[i]))
             self.line_tracker.add(float(lines[i]))
             self.log(
@@ -280,6 +346,10 @@ class _OnlineDriverBase:
         multiple of train_batch or the memory's cap (rounded down; under
         acc_policy >= 0 rounded up, the oldest rows duplicated at the
         front). Returns False when there is not one minibatch."""
+        if self._watchdog is not None:
+            # a session holds the host loop for its whole length; its
+            # validation lines beat from the first window on
+            self._watchdog.grace()
         cfg = self.cfg
         count = int(self.replay.count)
         cap = cfg.memory_size - cfg.memory_size % cfg.train_batch
@@ -403,6 +473,8 @@ class _OnlineDriverBase:
         """Fresh games and episode bookkeeping (a benchmark round starts
         clean)."""
         self._reinit_games(seed)
+        self._ep_id = np.arange(self.cfg.batch, dtype=np.int64)
+        self._next_ep = self.cfg.batch
         self.episodes = 0
         self.score_tracker = EpisodeTracker()
         self.line_tracker = EpisodeTracker()
@@ -446,6 +518,10 @@ class _OnlineDriverBase:
                                      log=self.log, metrics=self.metrics)
         bench = self._bench
         bench.reset_games(cfg.seed + 7777 * self._bench_round)
+        if self._watchdog is not None:
+            # the twin's first move builds its trees and runs the
+            # benchmark width for the first time
+            self._watchdog.grace()
         t0 = time.time()
         bench.run_episodes(cfg.benchmark_games, max_moves=cfg.benchmark_max_moves)
         lt, st = bench.line_tracker, bench.score_tracker
@@ -498,8 +574,10 @@ class SelfPlayDriver(_OnlineDriverBase):
 
     def __init__(self, cfg: SelfPlayConfig, model: VVModel | None = None,
                  device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
-                 metrics=None):
-        self._init_bookkeeping(cfg, log, metrics)
+                 metrics=None, saver=None, status=None):
+        """`saver`: a `utils.data.DataSaver` (per-move rows); `status`: an
+        `obs.metrics.StatusPublisher` (live-state memmaps)."""
+        self._init_bookkeeping(cfg, log, metrics, saver, status)
         self.device = torch.device(device)
         self.model = model if model is not None else VVModel(cfg.seed, self.device)
         tree_cfg = TreeConfig(
@@ -539,8 +617,14 @@ class SelfPlayDriver(_OnlineDriverBase):
 
     def step(self):
         """One batched move (B games advance one action each)."""
+        envs_prev = self.envs  # the move returns new env tensors
         self.envs, stats = self._move(self.trees, self.envs, self.replay)
-        return self._after_move(stats)
+        return self._after_move(stats, envs_prev)
+
+    def _saver_extras(self, stats):
+        """(child_stats (B, 3, 7), root variance (B,)): the saver's
+        search-statistics columns."""
+        return stats.child_stats, stats.root_var
 
     def _trim_uniforms(self, n: int):
         """Uniform draws (n,) of the random trim."""
@@ -553,3 +637,33 @@ class SelfPlayDriver(_OnlineDriverBase):
         rep = self.replay
         return [engine.unpack_obs(rep.boards[o]), rep.value[o], rep.var[o],
                 rep.weight[o]]
+
+    def save_nodes(self, path: str, min_visits: int = 1):
+        """Write every tree's searched observations (each obs slot in use,
+        not terminal, with at least `min_visits` visits) to `path` with
+        `np.savez`: board (n, 20, 10) int8, value, variance, visit (n,)
+        float32 and game (n,) int64, the tree's lane, in lane-major order."""
+        packed, val, var, w, mask = T.harvest(self.trees, min_visits)
+        lanes = torch.arange(mask.shape[0], device=mask.device)[:, None].expand_as(mask)
+        cols = dict(board=engine.unpack_obs(packed[mask]), value=val[mask],
+                    variance=var[mask], visit=w[mask], game=lanes[mask].to(torch.int64))
+        np.savez(path, **{k: v.cpu().numpy() for k, v in cols.items()})
+        self.log(f"saved {int(cols['game'].shape[0])} nodes to {path}")
+
+
+def _host_read(parts):
+    """ONE device-to-host copy of several tensors: their bytes are joined on
+    the device, copied once and split on the host into numpy arrays of
+    their own dtypes and shapes (order the parts by falling element size,
+    so every host view is aligned)."""
+    if len(parts) == 1:
+        return [parts[0].cpu().numpy()]
+    buf = torch.cat([p.contiguous().reshape(-1).view(torch.uint8) for p in parts])
+    buf = buf.cpu().numpy()
+    out, off = [], 0
+    for p in parts:
+        n = p.numel() * p.element_size()
+        dt = torch.empty(0, dtype=p.dtype).numpy().dtype
+        out.append(buf[off:off + n].view(dt).reshape(tuple(p.shape)))
+        off += n
+    return out

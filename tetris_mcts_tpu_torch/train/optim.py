@@ -29,9 +29,9 @@ class Yogi:
     """Yogi state (mu, nu, count) for a list of parameter tensors, updated
     in place by `step(grads)`."""
 
-    def __init__(self, params):
+    def __init__(self, params, lr: float = LR, weight_decay: float = WEIGHT_DECAY):
         self.params = list(params)
-        self.lr, self.eps, self.weight_decay = LR, EPS, WEIGHT_DECAY
+        self.lr, self.eps, self.weight_decay = lr, EPS, weight_decay
         self.b1, self.b2 = B1, B2
         self.mu = [torch.full_like(p, INITIAL_ACCUMULATOR) for p in self.params]
         self.nu = [torch.full_like(p, INITIAL_ACCUMULATOR) for p in self.params]

@@ -131,21 +131,30 @@ def _boards(x, device):
 class VVModel:
     """VV net + output bounds on `device`, with Yogi training.
 
-    The loss is `kldiv` and Yogi runs at its defaults (lr 1e-3, weight
-    decay 1e-3), as the self-play CLI trains. Sessions weight the loss by
-    the weight column, normalised to mean 1, and add no EWC penalty; the
-    penalty is `train_step`'s `lam` with `fisher` / `p0` (`compute_fisher`)."""
+    Options, as the reference's: `loss_type` (one of `models/losses.vv_loss`'s
+    names), `weighted` (sessions weight the loss by the weight column,
+    normalised to mean 1; else by ones), Yogi's `lr` and `weight_decay`,
+    and `ewc` (every step of a session adds 0.5 * `ewc_lambda` * sum F (p -
+    p0)^2, with the Fisher F and anchor p0 of `compute_fisher`). The
+    defaults (kldiv, weighted, 1e-3, 1e-3, no EWC) are what the self-play
+    CLI trains with."""
 
     def __init__(self, seed: int = 0, device="cuda", checkpoint_path: str = DEFAULT_CKPT,
-                 index_source=None):
+                 index_source=None, loss_type: str = "kldiv", weighted: bool = True,
+                 lr: float = 1e-3, weight_decay: float = 1e-3, ewc: bool = False,
+                 ewc_lambda: float = 1.0):
         self.device = torch.device(device)
         self.net = VVNet(seed=seed).to(self.device)
         self.ubound = torch.tensor([1e2, 1e3], device=self.device)
         self.lbound = torch.tensor([0.0, VARIANCE_BOUND], device=self.device)
-        self.loss_fn = L.vv_loss("kldiv")
+        self.loss_type = loss_type
+        self.loss_fn = L.vv_loss(loss_type)
+        self.weighted = weighted
+        self.ewc = ewc
+        self.ewc_lambda = float(ewc_lambda)
         self.checkpoint_path = checkpoint_path
         self.names = [n for n, _ in self.net.named_parameters()]
-        self.opt = Yogi(self.net.parameters())
+        self.opt = Yogi(self.net.parameters(), lr=lr, weight_decay=weight_decay)
         self.fisher = {n: torch.zeros_like(p) for n, p in self.net.named_parameters()}
         self.p0 = self._params_copy()
         self._ubound_floor = None
@@ -233,18 +242,21 @@ class VVModel:
 
     def train_data(self, data, batch_size: int = 128, iters_per_val: int = 500,
                    validation_fraction: float = 0.1, validation_rows: int | None = None,
-                   early_stopping: bool = True,
+                   weighted: bool | None = None, early_stopping: bool = True,
                    early_stopping_patience: int = 10,
                    early_stopping_threshold: float = 1.0, shuffle: bool = False,
                    min_iters: int = 0, max_iters: int = 100000,
                    grad_norm_warn: float = 1e3, dump_dir: str = "./data", log=print):
         """One training session over data = [states, values, variance,
-        weights] (numpy arrays or tensors). Returns the history, a list of
+        weights] (numpy arrays or tensors); `weighted` sets the model's
+        option for this and later sessions. Returns the history, a list of
         (iteration, train loss, val loss, val std, grad norm) a window."""
+        if weighted is not None:
+            self.weighted = weighted
         dev = self.device
         states = _boards(data[0], dev)
         value, variance, weight = (_col(x, dev) for x in data[1:4])
-        weight = weight / weight.mean()
+        weight = weight / weight.mean() if self.weighted else torch.ones_like(weight)
         n = states.shape[0]
         # validation_rows pins the tail exactly
         n_val = (validation_rows if validation_rows is not None
@@ -270,6 +282,7 @@ class VVModel:
         n_train = n - n_val
         log(f"Training data size: {n_train}    Validation data size: {n_val}")
 
+        lam = self.ewc_lambda if self.ewc else 0.0
         fails = 0
         best_val = float("inf")
         best = self._params_copy()
@@ -281,7 +294,7 @@ class VVModel:
             idxs, losses, gnorms = [], [], []
             for _ in range(k):
                 idx = self.index_source(n_train, batch_size)
-                loss, _, gnorm = self.train_step(train, idx)
+                loss, _, gnorm = self.train_step(train, idx, lam)
                 idxs.append(idx)
                 losses.append(loss)
                 gnorms.append(gnorm)
