@@ -1,4 +1,4 @@
-"""The port's `play`, `train` and `cycle` CLIs and the driver on the CPU:
+"""The port's `play`, `train` and `cycle` CLIs and the drivers on the CPU:
 a tiny run plays whole episodes and logs them in the reference's
 "Episode:" format, for every agent type the port runs; a tiny online run
 of each training agent trains, writes its checkpoint and metrics, and
@@ -7,6 +7,9 @@ does not support is refused by name. The channels and modes of `play`
 (`--printboard` and `--interactive` against the JAX package's output,
 `--endless`, `--low`, `--save_tree`, `--trace`), `train` on saved rows,
 the `cycle` plan against the JAX package's, and one real cycle iteration.
+The VP-net agents: ApproxPolicyIter frozen and online (a session, its
+checkpoint, reloaded), HybridSim, FiniteSim and FullSim, `train --model vp`
+on rows an ApproxPolicyIter run saved, and the VP cycle's plan.
 """
 
 import os
@@ -70,7 +73,7 @@ def test_play_agent_runs_a_game_on_cpu(agent, capsys):
     assert re.search(r"Episode:\s+1\s+Score:\s+\d+\s+Lines Cleared:\s+\d+", err)
 
 
-@pytest.mark.parametrize("agent", ["ApproxPolicyIter", "HybridSim", "DQN"])
+@pytest.mark.parametrize("agent", ["DistValueSim", "ValueSim2", "DQN"])
 def test_play_refuses_unported_agent_types(agent, capsys):
     with pytest.raises(SystemExit) as exc:
         play.main(TINY + ["--agent_type", agent])
@@ -108,9 +111,17 @@ def test_play_online_trains_and_reloads_on_cpu(agent, tmp_path, capsys):
 
 
 def test_play_load_model_names_the_converter_for_a_jax_checkpoint(tmp_path):
+    """--load_model reads the JAX package's checkpoint (the repo's VV net),
+    and names both formats for a file that is neither."""
+    ckpt = os.path.join(ROOT, "checkpoints", "model_vv.msgpack")
+    driver = play.main(TINY + ["--checkpoint", ckpt, "--load_model", "--ngames", "0"])
+    assert torch.equal(driver.model.ubound, torch.tensor([100.0, 1000.0]))
+    fresh = play.main(TINY + ["--ngames", "0"]).model.net.conv1.weight
+    assert not torch.equal(driver.model.net.conv1.weight, fresh)
     blob = tmp_path / "model_vv.msgpack"
     blob.write_bytes(b"not a torch checkpoint")
-    with pytest.raises(ValueError, match="params_from_jax and opt_state_from_jax"):
+    with pytest.raises(ValueError, match="neither a checkpoint of the port .* nor one of "
+                                         "the JAX package"):
         play.main(TINY + ["--checkpoint", str(blob), "--load_model"])
 
 
@@ -285,7 +296,7 @@ def test_train_on_saved_rows_then_play_the_trained_net(tmp_path, capsys):
     assert not torch.equal(trained.model.apply_fn()(boards)[0], seed_net[0])
 
 
-@pytest.mark.parametrize("flag", ["--model=vp", "--ensemble=2"])
+@pytest.mark.parametrize("flag", ["--model=dist", "--ensemble=2"])
 def test_train_refuses_unported_models(flag, capsys):
     from tetris_mcts_tpu_torch.cli import train
 
@@ -337,9 +348,9 @@ def test_cycle_refuses_unported_agent_types(capsys):
     from tetris_mcts_tpu_torch.cli import cycle
 
     with pytest.raises(SystemExit) as exc:
-        cycle.main(["--agent_type", "ApproxPolicyIter", "--dry_run"])
+        cycle.main(["--agent_type", "DistValueSim", "--dry_run"])
     assert exc.value.code == 2
-    assert "--agent_type ApproxPolicyIter is not ported" in capsys.readouterr().err
+    assert "--agent_type DistValueSim is not ported" in capsys.readouterr().err
 
 
 def test_cycle_runs_one_iteration_on_cpu(tmp_path):
@@ -368,3 +379,100 @@ def test_cycle_runs_one_iteration_on_cpu(tmp_path):
     assert len(DataLoader(str(data / "self0" / "data1.rec"))) == 4 * 2
     assert cycle.last_cycle(str(data)) == 1
     assert (data / "bench_metrics.jsonl").is_file()
+
+
+# ---------------------------------------------------------------------------
+# the VP-net agents
+# ---------------------------------------------------------------------------
+
+# VP-net agent -> (evaluator, playout steps at most: the agent's depth, FullSim's
+# cut to 40 by --rollout_depth here)
+VP_AGENTS = {"ApproxPolicyIter": ("vp", None), "HybridSim": ("hybrid", 30),
+             "FiniteSim": ("finite", 50), "FullSim": ("full", 40)}
+
+
+@pytest.mark.parametrize("agent", VP_AGENTS)
+def test_play_vp_agent_runs_on_cpu(agent):
+    from tetris_mcts_tpu_torch.runtime.selfplay import VPSelfPlayDriver
+    from tetris_mcts_tpu_torch.train.trainer import VP_DEFAULT_CKPT, VPModel
+
+    evaluator, depth = VP_AGENTS[agent]
+    cut = ["--rollout_depth", "40"] if agent == "FullSim" else []
+    driver = play.main(TINY + ["--agent_type", agent, "--ngames", "1", "--max_moves", "3"]
+                       + cut)
+    assert isinstance(driver.model, VPModel) and driver.cfg.benchmark
+    assert driver.model.checkpoint_path == VP_DEFAULT_CKPT
+    assert driver.moves == 3 and driver.cfg.evaluator == evaluator
+    if agent == "ApproxPolicyIter":
+        assert isinstance(driver, VPSelfPlayDriver)
+        probs = driver.last_stats.probs  # the root improvement policy
+        assert torch.allclose(probs.sum(1), torch.ones(2)) and float(probs.max()) > 1 / 7
+    else:
+        assert 0 < driver.evaluator.steps <= depth
+        # the playouts' variance (1e3) was backed up to the root's children
+        assert float(driver.last_stats.child_stats[:, 2].max()) > 100.0
+
+
+def test_play_vp_online_trains_and_reloads_on_cpu(tmp_path, capsys):
+    ckpt, metrics = str(tmp_path / "ck" / "vp.pt"), str(tmp_path / "m.jsonl")
+    driver = play.main(TINY + ONLINE + ["--agent_type", "ApproxPolicyIter", "--checkpoint",
+                                        ckpt, "--metrics", metrics])
+    err = capsys.readouterr().err
+    assert not driver.cfg.benchmark and driver.cfg.checkpoint_each_train
+    assert driver.n_trains >= 1 and "Training session 1: " in err
+    reader = MetricsReader(metrics)
+    reader.poll()
+    sessions = reader.of_kind("train_session")
+    assert len(sessions) == driver.n_trains and sessions[0]["iters"] == 10
+    assert sessions[0]["grad_norm"] is None  # the VP session logs no grad norm
+    boards = torch.as_tensor(np.random.RandomState(0).randint(-1, 2, (16, 1, 20, 10)),
+                             dtype=torch.float32)
+    again = play.main(TINY + ["--agent_type", "ApproxPolicyIter", "--checkpoint", ckpt,
+                              "--load_model", "--ngames", "0"])
+    assert again.cfg.benchmark
+    for a, b in zip(driver.model.apply_fn()(boards), again.model.apply_fn()(boards)):
+        assert torch.equal(a, b)
+    assert again.model.opt.count == driver.model.opt.count > 0
+
+
+def test_train_vp_on_rows_saved_by_approx_policy_iter(tmp_path, capsys):
+    from tetris_mcts_tpu_torch.cli import train
+    from tetris_mcts_tpu_torch.utils.data import DataLoader
+
+    play.main(TINY + ["--agent_type", "ApproxPolicyIter", "--batch", "4", "--save",
+                      "--save_dir", str(tmp_path / "data"), "--ngames", "50",
+                      "--max_moves", "10"])
+    rows = DataLoader(str(tmp_path / "data" / "data0.rec"))
+    assert len(rows) == 40 and not rows.child_stats.any() and not rows.variance.any()
+    np.testing.assert_allclose(rows.policy.sum(1), 1.0, rtol=1e-6)
+    ckpt = str(tmp_path / "ck" / "vp.pt")
+    hist = train.main(["--device", "cpu", "--model", "vp", "--data",
+                       str(tmp_path / "data" / "data*.rec"), "--td", "--weighted",
+                       "--weighted_mode", "1", "--early_stopping", "--validation",
+                       "--iters_per_val", "5", "--max_iters", "20", "--batch_size", "8",
+                       "--checkpoint", ckpt, "--ewc"])
+    out = capsys.readouterr().out
+    assert "--ewc applies to the vv model only; ignored" in out and "Saving model..." in out
+    assert len(hist[0]) == 4 and hist[-1][0] <= 20
+    boards = torch.as_tensor(np.random.RandomState(0).randint(-1, 2, (8, 1, 20, 10)),
+                             dtype=torch.float32)
+    base = ["--agent_type", "HybridSim", "--ngames", "0"]
+    seed_net = play.main(TINY + base).model.apply_fn()(boards)
+    trained = play.main(TINY + base + ["--load_model", "--checkpoint", ckpt])
+    assert trained.model.opt.count == hist[-1][0]
+    assert not torch.equal(trained.model.apply_fn()(boards)[1], seed_net[1])
+
+
+def test_cycle_dry_run_trains_the_vp_net_for_the_vp_agents(tmp_path, capsys):
+    from tetris_mcts_tpu_torch.cli import cycle
+
+    (tmp_path / "self0").mkdir()
+    (tmp_path / "self0" / "data0.rec").touch()
+    cycle.main(["--agent_type", "ApproxPolicyIter", "--iters", "1", "--dry_run",
+                "--data_dir", str(tmp_path), "--device", "cpu"])
+    plan = capsys.readouterr().out
+    train_cmd = [ln for ln in plan.splitlines() if "cli.train" in ln]
+    assert len(train_cmd) == 1 and "--model vp" in train_cmd[0]
+    cycle.main(["--agent_type", "ValueSimLP", "--iters", "1", "--dry_run", "--data_dir",
+                str(tmp_path), "--device", "cpu"])
+    assert "--model vv" in capsys.readouterr().out

@@ -241,7 +241,7 @@ def test_train_data_session_matches_jax(tmp_path):
                                atol=1e-2)
 
 
-def test_zero_gradient_guard_ends_the_session():
+def test_zero_gradient_guard_ends_the_session(tmp_path):
     """Output heads saturated on every row (sigmoid == 1.0 exactly): the
     first window's gradients are all zero and the session ends there, in
     both packages."""
@@ -253,8 +253,8 @@ def test_zero_gradient_guard_ends_the_session():
     cols = columns(64, seed=2)
     args = dict(batch_size=16, iters_per_val=5, max_iters=100)
     jlog, plog = [], []
-    jh = jm.train_data(cols, log=jlog.append, **args)
-    ph = m.train_data(cols, log=plog.append, **args)
+    jh = jm.train_data(cols, log=jlog.append, dump_dir=str(tmp_path / "j"), **args)
+    ph = m.train_data(cols, log=plog.append, dump_dir=str(tmp_path / "p"), **args)
     assert len(ph) == len(jh) == 1 and ph[0][4] == jh[0][4] == 0.0
     assert plog[-1].startswith("Zero-gradient window at iteration 5")
     assert jlog[-1].startswith("Zero-gradient window at iteration 5")
@@ -276,9 +276,8 @@ def test_ubound_rescale_and_floor_after_load(tmp_path):
     seen = []
     for vmax in (20.0, 300.0, 50.0):
         cols = columns(64, seed=4, vmax=vmax)
-        jm.train_data(cols, log=lambda s: None, **args)
-        m.train_data(cols, log=lambda s: None, **args)
-        fresh.train_data(cols, log=lambda s: None, **args)
+        for model in (jm, m, fresh):
+            model.train_data(cols, log=lambda s: None, dump_dir=str(tmp_path / "dump"), **args)
         np.testing.assert_array_equal(m.ubound.numpy(), np.asarray(jm.ubound))
         np.testing.assert_array_equal(fresh.ubound.numpy()[0], cols[1].max())
         seen.append(float(m.ubound[0]))
@@ -355,15 +354,25 @@ def test_jax_checkpoint_carried_into_the_port(tmp_path):
 
 
 def test_load_refuses_a_jax_checkpoint_and_save_never_overwrites_one(tmp_path):
-    """The JAX blob is not the port's format: load names the converter,
-    and save refuses to write over it (the tracked file is only read)."""
+    """The JAX blob is not the port's format: load reads it through the
+    numpy-only reader and the converters (the same params, Yogi state and
+    bounds as params_from_jax and opt_state_from_jax give), and save
+    refuses to write over it (the tracked file is only read)."""
     blob = tmp_path / "model_vv.msgpack"
     with open(CKPT, "rb") as f:
         data = f.read()
     blob.write_bytes(data)
     m = VVModel(device="cpu", checkpoint_path=str(blob))
-    with pytest.raises(ValueError, match="params_from_jax and opt_state_from_jax"):
-        m.load()
+    assert m.load()
+    jm = JVVModel(seed=0)
+    assert jm.load(CKPT)
+    want = port_of(jm, seed=0)
+    for k, v in want.net.state_dict().items():
+        assert torch.equal(m.net.state_dict()[k], v), k
+    mu, nu, count = opt_state_from_jax(jax.tree.map(np.asarray, jm.opt_state))
+    for n, a, b in zip(m.names, m.opt.mu, m.opt.nu):
+        assert torch.equal(a, mu[n]) and torch.equal(b, nu[n])
+    assert m.opt.count == count and torch.equal(m._ubound_floor, want.ubound)
     with pytest.raises(ValueError, match="refusing to overwrite"):
         m.save()
     assert blob.read_bytes() == data

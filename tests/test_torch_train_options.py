@@ -45,7 +45,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_session_option_matches_jax(case):
+def test_session_option_matches_jax(case, tmp_path):
     model_kw, data_kw = CASES[case]
     jm = JVVModel(seed=3, **model_kw)
     m = port_of(jm, seed=3, index_source=JaxIndexSource(), **model_kw)
@@ -56,8 +56,9 @@ def test_session_option_matches_jax(case):
         jm.compute_fisher(anchor)
         m.compute_fisher(anchor)
     jlog, plog = [], []
-    jh = jm.train_data(cols, log=jlog.append, **{**SESSION, **data_kw})
-    ph = m.train_data(cols, log=plog.append, **{**SESSION, **data_kw})
+    dump = dict(dump_dir=str(tmp_path / "dump"))
+    jh = jm.train_data(cols, log=jlog.append, **dump, **{**SESSION, **data_kw})
+    ph = m.train_data(cols, log=plog.append, **dump, **{**SESSION, **data_kw})
     assert [h[0] for h in ph] == [h[0] for h in jh]
     np.testing.assert_allclose(np.array(ph)[:, 1:], np.array(jh)[:, 1:], rtol=1e-4, atol=1e-5)
     stars = lambda log: [ln.endswith("*") for ln in log if ln.startswith("Iteration")]
@@ -71,6 +72,6 @@ def test_session_option_matches_jax(case):
         base = port_of(JVVModel(seed=3), seed=3, index_source=JaxIndexSource())
         if model_kw.get("ewc"):
             base.compute_fisher(anchor)
-        bh = base.train_data(cols, log=lambda s: None, **{**SESSION, **data_kw,
-                                                              "weighted": True})
+        bh = base.train_data(cols, log=lambda s: None, **dump, **{**SESSION, **data_kw,
+                                                                      "weighted": True})
         assert not np.allclose(np.array(bh)[:, 1:], np.array(ph)[:, 1:], rtol=1e-3)

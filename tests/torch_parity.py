@@ -130,13 +130,15 @@ def jax_move_program(ev, jcfg, sims, evaluator, **search_kw):
 
 
 def run_slice(move_j, params, ubound, move_t, planes, jcfg, tcfg, B_, moves,
-              tol, seed=5, start=None, record=None):
+              tol, seed=5, start=None, record=None, final_select=True):
     """`moves` moves of the JAX move program and of the port's on the same
     games and randomness: actions, env states, resets, node counts and the
-    trees' integer arrays equal; statistics within `tol`; then one more
-    select walk on the final trees gives equal traces. `start` gives the
-    initial (jtrees, jenvs, ttrees, tenvs) in place of `init_batch(seed)`;
-    the port's MoveStats of every move are appended to `record`."""
+    trees' integer arrays equal; statistics within `tol`; then, with
+    `final_select`, one more select walk on the final trees gives equal
+    traces (the eager interpreted select costs ~30 s on the CPU). `start`
+    gives the initial (jtrees, jenvs, ttrees, tenvs) in place of
+    `init_batch(seed)`; the port's MoveStats of every move are appended to
+    `record`."""
     if start is None:
         jtrees, jenvs = JM.init_batch(seed, B_, JM.SearchConfig(tree=jcfg))
         ttrees, tenvs = M.init_batch(seed, B_, M.SearchConfig(tree=tcfg), device="cpu")
@@ -160,6 +162,8 @@ def run_slice(move_j, params, ubound, move_t, planes, jcfg, tcfg, B_, moves,
         if record is not None:
             record.append(tst)
 
+    if not final_select:
+        return ttrees, jtrees
     # traces: one more select walk on the final trees, same planes
     key = jax.random.PRNGKey(21)
     want = JW.select_batched_pallas(jtrees, key, jcfg)
@@ -167,3 +171,102 @@ def run_slice(move_j, params, ubound, move_t, planes, jcfg, tcfg, B_, moves,
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     return ttrees, jtrees
+
+
+# ---------------------------------------------------------------------------
+# the VP family: the VP search's key schedule, its trees, a stub VP net
+# ---------------------------------------------------------------------------
+
+STUB_LOGIT = np.array([0.03, -0.02, 0.011, 0.005, -0.007, 0.017, -0.002], np.float32)
+
+
+def vp_stubs(scale=1.0):
+    """Stand-ins for the VP net, (JAX apply on NHWC images, port apply on
+    NCHW images): from the board's cell sum s (an exact integer), value
+    0.5 s and logits s x STUB_LOGIT x scale, so the same board gives
+    bit-equal outputs in both packages and the priors differ by board
+    (a larger scale, a more peaked policy)."""
+    c = (STUB_LOGIT * np.float32(scale)).astype(np.float32)
+
+    def jax_apply(p, x):
+        s = jnp.sum(x, axis=(1, 2, 3))
+        return (0.5 * s)[:, None], s[:, None] * jnp.asarray(c)
+
+    def torch_apply(x):
+        s = x.sum(dim=(1, 2, 3))
+        return 0.5 * s, s[:, None] * torch.as_tensor(c, device=x.device)
+
+    return jax_apply, torch_apply
+
+
+@jax.jit
+def _vp_uniforms_jit(k_sel, zeros_bd):
+    B, D = zeros_bd.shape
+    keys = jax.random.split(k_sel, B)
+
+    def body(keys, _):
+        ks = jax.vmap(jax.random.split)(keys)
+        u = jax.vmap(lambda k: jax.random.uniform(k, (), jnp.float32))(ks[:, 1])
+        return ks[:, 0], u
+
+    _, us = jax.lax.scan(body, keys, None, length=D)
+    return us.T
+
+
+def vp_uniforms(k_sel, B_, D):
+    """The uniforms (B, D) that the JAX VP `select_batched` draws from the
+    keys split(k_sel, B): per level, `keys, sub = split(keys)` a lane and
+    `jax.random.choice`'s `uniform(sub, ())`."""
+    return torch.as_tensor(np.array(_vp_uniforms_jit(k_sel, jnp.zeros((B_, D)))))
+
+
+class JaxVPKeyPlanes:
+    """Replays the JAX VP driver's key schedule: per move `key, sub =
+    split(key)` (VPSelfPlayDriver.step), `_, k_sims = split(sub)`
+    (make_vp_move_fn), then per sim `key, k_sel = split(key)` and the select
+    walk's uniforms from `split(k_sel, B)` (`vp_uniforms`)."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def next_move(self):
+        self.key, sub = jax.random.split(self.key)
+        _, self._k = jax.random.split(sub)
+        return sub
+
+    def uniforms(self, B_, D):
+        self._k, k_sel = jax.random.split(self._k)
+        return vp_uniforms(k_sel, B_, D)
+
+
+def vp_tree_from_jax(jvt):
+    """A batched JAX VPTree as the port's."""
+    from tetris_mcts_tpu_torch.search import vp as VP
+
+    t = lambda x: torch.as_tensor(np.array(x, np.float32))
+    return VP.VPTree(tree_from_jax(jvt.base), t(jvt.prior), t(jvt.pol_new))
+
+
+def assert_vp_tree_equal(got, jvt, tol=STAT_TOL, msg=""):
+    """The base tree's integer arrays and visits equal, values within tol,
+    pol_new equal, prior within rtol 1e-6 / atol 1e-7 (a softmax in two
+    frameworks)."""
+    assert_tree_equal(got.base, jvt.base, stats_tol=tol, msg=msg)
+    np.testing.assert_array_equal(got.pol_new.numpy(), np.asarray(jvt.pol_new),
+                                  err_msg=f"pol_new {msg}")
+    np.testing.assert_allclose(got.prior.numpy(), np.asarray(jvt.prior), rtol=1e-6,
+                               atol=1e-7, err_msg=f"prior {msg}")
+
+
+def torch_gumbels_of(planes):
+    """`draw(B, step)` for the port's policy playout replaying the JAX
+    `policy_rollout_evaluator`'s draws from the simulation's k_ev: per step
+    `k, sub = split(k)` and `categorical`'s `gumbel(sub, (B, 7))`."""
+
+    def draw(B_, step):
+        if step == 0:
+            planes._k_roll = planes._k_ev
+        planes._k_roll, sub = jax.random.split(planes._k_roll)
+        return torch.as_tensor(np.array(jax.random.gumbel(sub, (B_, 7))))
+
+    return draw

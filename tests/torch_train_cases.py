@@ -1,4 +1,4 @@
-"""Helpers for holding a VV train step on two devices, or in two
+"""Helpers for holding a VV or VP train step on two devices, or in two
 frameworks, against each other (no JAX here: chip_smoke.py imports it).
 
 A pre-activation within float32 rounding of zero may fall on either side
@@ -15,7 +15,7 @@ import copy
 import torch
 import torch.nn.functional as F
 
-from tetris_mcts_tpu_torch.models.nets import tf32_off
+from tetris_mcts_tpu_torch.models.nets import group_norm, tf32_off
 
 
 @torch.no_grad()
@@ -35,11 +35,20 @@ def min_nonzero_preactivation(net, states):
 
 @torch.no_grad()
 def relu_masks(net, states):
-    """Which inputs of the VV net's four ReLUs are positive on states
-    (n, 1, 20, 10), computed as the float32 forward computes them (TF32
-    off) on the net's own device; returned on the CPU."""
+    """Which inputs of the net's ReLUs are positive on states (n, 1, 20,
+    10): the VV net's four, or the VP net's four (after each GroupNorm, and
+    the two 128-unit FCs), computed as the float32 forward computes them
+    (TF32 off) on the net's own device; returned on the CPU."""
     x, masks = states.to(net.conv1.weight.device, torch.float32), []
     with tf32_off():
+        if hasattr(net, "norm1"):  # VPNet
+            for c, n in ((net.conv1, net.norm1), (net.conv2, net.norm2)):
+                z = group_norm(F.conv2d(x, c.weight, c.bias), n.weight, n.bias)
+                masks.append(z > 0)
+                x = F.relu(z)
+            x = x.flatten(1)
+            masks += [F.linear(x, fc.weight, fc.bias) > 0 for fc in (net.fc_v, net.fc_p)]
+            return [m.cpu() for m in masks]
         for c in (net.conv1, net.conv2, net.conv3):
             z = F.conv2d(x, c.weight, c.bias)
             masks.append(z > 0)

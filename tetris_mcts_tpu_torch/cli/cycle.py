@@ -10,7 +10,9 @@ batched run already plays `--batch` games at once on the card.
 `--clear` deletes the data directory first, `--resume` starts after the
 last cycle found in it, and `--dry_run` prints the commands without
 running them. `--train_args` and `--play_args` append flags to the train
-and to every play command (for example smaller pools).
+and to every play command (for example smaller pools). `--model` (the
+net trained each cycle) defaults to vp for the VP-net agents
+(ApproxPolicyIter, HybridSim, FiniteSim, FullSim), else vv.
 
     python -m tetris_mcts_tpu_torch cycle --iters 10 --data_dir ./data
 """
@@ -42,8 +44,9 @@ def build_parser():
     p.add_argument("--bench_games", type=int, default=4)
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--agent_type", default="ValueSimLP")
-    p.add_argument("--model", default="vv", choices=("vv", "vp", "dist"),
-                   help="the net trained each cycle (only vv is ported)")
+    p.add_argument("--model", default="", choices=("", "vv", "vp", "dist"),
+                   help="the net trained each cycle (default: vp for the VP-net "
+                        "agents, else vv; dist is not ported)")
     p.add_argument("--clear", "-c", action="store_true")
     p.add_argument("--resume", "-r", action="store_true")
     p.add_argument("--checkpoint", default=DEFAULT_CKPT)
@@ -73,15 +76,17 @@ def run(cmd, dry):
 
 
 def main(argv=None):
-    from tetris_mcts_tpu_torch.cli.play import AGENT_TYPES
+    from tetris_mcts_tpu_torch.cli.play import AGENT_TYPES, VP_EVALUATORS
 
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.agent_type not in AGENT_TYPES:
         parser.error(f"--agent_type {args.agent_type} is not ported yet (the port runs "
                      f"{', '.join(AGENT_TYPES)})")
-    if args.model != "vv":
-        parser.error(f"--model {args.model} is not ported yet (the port trains the vv net)")
+    if args.model == "dist":
+        parser.error("--model dist is not ported yet (the port trains the vv and vp nets)")
+    if not args.model:
+        args.model = "vp" if AGENT_TYPES[args.agent_type][0] in VP_EVALUATORS else "vv"
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to run the plain versions)")

@@ -11,13 +11,18 @@ map):
   train; ValueSimBayes: the leaf evaluator under `--policy bayes`, no
   training;
 - Vanilla, VanillaC, Random: the rollout evaluator (uniform-random
-  playouts), no training; Random searches with one simulation.
+  playouts), no training; Random searches with one simulation;
+- ApproxPolicyIter: the VP search (`search/vp.py`) on the VP net, trains;
+- HybridSim, FiniteSim, FullSim: playouts guided by the VP net's policy,
+  30 and 50 steps and to the game's end (`--rollout_depth` overrides), no
+  training.
 
 Training runs as in the reference: when the agent trains and `--online`
 is given and `--benchmark` is not. It then saves the model after every
-session and at the end (`--checkpoint`, default
-`train/trainer.DEFAULT_CKPT`, the port's own format); `--load_model`
-reads it first. `--low` defaults as in the reference: 10 under bayes, 5
+session and at the end (`--checkpoint`, the port's own format; its
+default is the VV net's `train/trainer.DEFAULT_CKPT`, redirected to
+`VP_DEFAULT_CKPT` for the VP-net agents, `cli.resolve_ckpt`);
+`--load_model` reads it first, a checkpoint of the JAX package too. `--low` defaults as in the reference: 10 under bayes, 5
 for Vanilla/VanillaC, else 1. The reference's other agent types, and any
 reference flag this port does not read, are refused with a message that
 names them.
@@ -47,6 +52,7 @@ import sys
 
 import torch
 
+from tetris_mcts_tpu_torch.cli import resolve_ckpt
 from tetris_mcts_tpu_torch.ops.tree_walk import POLICIES
 from tetris_mcts_tpu_torch.train.trainer import DEFAULT_CKPT
 
@@ -60,11 +66,14 @@ AGENT_TYPES = {
     "ValueSimBayes": ("leaf", False),
     "Vanilla": ("rollout", False), "VanillaC": ("rollout", False),
     "Random": ("rollout", False),
+    "ApproxPolicyIter": ("vp", True),
+    "HybridSim": ("hybrid", False), "FiniteSim": ("finite", False),
+    "FullSim": ("full", False),
 }
+# the evaluators that run on the VP net
+VP_EVALUATORS = ("vp", "hybrid", "finite", "full")
 # the reference CLI's other agent types, not ported yet
-UNPORTED_AGENT_TYPES = ("ApproxPolicyIter", "DistValueSim",
-                        "HybridSim", "FiniteSim", "FullSim", "ValueSim2",
-                        "DQN", "DistDQN")
+UNPORTED_AGENT_TYPES = ("DistValueSim", "ValueSim2", "DQN", "DistDQN")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -124,8 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_model", action="store_true",
                    help="load --checkpoint before playing")
     p.add_argument("--checkpoint", default=DEFAULT_CKPT,
-                   help="the port's checkpoint (torch.save of params, Yogi "
-                        "state and bounds)")
+                   help="the port's checkpoint (torch.save of params, optimizer "
+                        "state and bounds); the default is redirected to "
+                        "model_vp_torch.pt for the VP-net agents")
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--max_nodes", type=int, default=4096)
     p.add_argument("--max_obs", type=int, default=4096)
@@ -133,6 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="1: done lanes re-root in their own pool; only pool "
                         "exhaustion resets a tree")
     p.add_argument("--max_depth", type=int, default=96)
+    p.add_argument("--rollout_depth", type=int, default=0,
+                   help="policy-playout depth for HybridSim/FiniteSim/FullSim "
+                        "(0 = the agents' 30/50/to the end)")
     p.add_argument("--memory_size", type=int, default=100000)
     p.add_argument("--memory_growth", type=int, default=5000)
     p.add_argument("--train_rows", type=int, default=5000)
@@ -232,8 +245,9 @@ def capture_trace(driver, directory: str, moves: int, device):
 
 def main(argv=None):
     from tetris_mcts_tpu_torch.runtime import watchdog
-    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, SelfPlayDriver
-    from tetris_mcts_tpu_torch.train.trainer import VVModel
+    from tetris_mcts_tpu_torch.runtime.selfplay import (SelfPlayConfig, SelfPlayDriver,
+                                                        VPSelfPlayDriver)
+    from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
 
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_parser()
@@ -285,7 +299,8 @@ def main(argv=None):
         benchmark_batch=args.benchmark_batch,
         benchmark_max_moves=args.benchmark_max_moves,
         benchmark_max_nodes=args.benchmark_max_nodes,
-        episode_reuse=bool(args.episode_reuse), bf16=args.bf16,
+        episode_reuse=bool(args.episode_reuse), rollout_depth=args.rollout_depth,
+        bf16=args.bf16,
         checkpoint_each_train=saves_model,
         dump_dir=args.dump_dir, seed=args.seed, actions_per_drop=args.app,
         scoring=args.scoring, randomizer=args.randomizer,
@@ -300,7 +315,11 @@ def main(argv=None):
             finally_.callback(watchdog.install, None)
             finally_.callback(wd.stop)
             wd.start()
-        model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint)
+        if evaluator in VP_EVALUATORS:
+            model = VPModel(args.seed, args.device,
+                            checkpoint_path=resolve_ckpt(args.checkpoint, "vp"))
+        else:
+            model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint)
         if args.load_model:
             model.load()
         saver = metrics = status = None
@@ -317,8 +336,9 @@ def main(argv=None):
             status = StatusPublisher(args.status_dir, batch=args.batch)
         if args.printboard:
             status = _PrintBoard(status)
-        driver = SelfPlayDriver(cfg, model=model, device=args.device, metrics=metrics,
-                                saver=saver, status=status)
+        driver_cls = VPSelfPlayDriver if evaluator == "vp" else SelfPlayDriver
+        driver = driver_cls(cfg, model=model, device=args.device, metrics=metrics,
+                            saver=saver, status=status)
         if saves_model:
             finally_.callback(model.save, verbose=True)
         if args.save_tree:

@@ -1,5 +1,5 @@
-"""`train` entry point of the port: offline training of the VV net from
-saved self-play rows (counterpart of the reference package's
+"""`train` entry point of the port: offline training of the VV or the VP net
+from saved self-play rows (counterpart of the reference package's
 `cli/train.py`, the step of the offline cycle that `cycle` drives).
 
 Loads `utils/data.DataSaver` files (`--data`, a glob, ordered by their
@@ -16,8 +16,12 @@ Targets:
 Weights (`--weighted`): `--weighted_mode 0` the root's visits (at least
 1), 1 the inverse variance; else ones.
 
-Only the VV net is ported: `--model vp|dist` and `--ensemble K` are
-refused by name.
+`--model vp` trains the VP net on [states, value, the saved root policy
+normalised to a distribution, weight], with Adam-amsgrad at lr 1e-4 by
+default and no grad-norm watchdog; `--ewc` and `--loss_type` apply to the
+VV net only and are ignored with a message, as in the reference. Its
+checkpoint defaults to the VP net's own (`cli.resolve_ckpt`). `--model
+dist` and `--ensemble K` are refused by name.
 
     python -m tetris_mcts_tpu_torch train --td --weighted --early_stopping --validation
 """
@@ -65,7 +69,8 @@ def build_parser():
     p.add_argument("--ensemble", type=int, default=0)
     p.add_argument("--loss_type", default="kldiv",
                    choices=("kldiv", "mle", "weak", "mle_approx", "mae", "mse"))
-    p.add_argument("--lr", type=float, default=None, help="learning rate (default 1e-3)")
+    p.add_argument("--lr", type=float, default=None,
+                   help="learning rate (default 1e-3 vv, 1e-4 vp)")
     p.add_argument("--cycle", type=int, default=0)
     p.add_argument("--save_loss", default="", help="loss-history directory ('' = off)")
     p.add_argument("--checkpoint", default=DEFAULT_CKPT)
@@ -124,14 +129,15 @@ def main(argv=None):
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"not supported by the port yet: {' '.join(unknown)}")
-    if args.model != "vv":
-        parser.error(f"--model {args.model} is not ported yet (the port trains the vv net)")
+    if args.model == "dist":
+        parser.error("--model dist is not ported yet (the port trains the vv and vp nets)")
     if args.ensemble > 0:
         parser.error(f"--ensemble {args.ensemble} is not ported yet (one vv net)")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to train on the CPU)")
-    from tetris_mcts_tpu_torch.train.trainer import VVModel
+    from tetris_mcts_tpu_torch.cli import resolve_ckpt
+    from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
     from tetris_mcts_tpu_torch.utils.data import DataLoader, LossSaver
 
     paths = sorted(glob.glob(args.data), key=cycle_no)
@@ -140,6 +146,10 @@ def main(argv=None):
     loader = DataLoader(paths)
     print(f"Loaded {len(loader)} rows from {len(paths)} file(s) ({args.data})", flush=True)
     cols = list(build_targets(loader, args.td, args.weighted, args.weighted_mode))
+    vp = args.model == "vp"
+    if vp:
+        pol = loader.policy.astype(np.float32)
+        cols[2] = pol / np.maximum(pol.sum(axis=1, keepdims=True), 1e-9)
 
     rng = np.random.RandomState(args.seed)
     val_rows = None
@@ -151,15 +161,24 @@ def main(argv=None):
         shuffle = False  # the held-out episodes are the tail
         val_rows = int(va.sum())  # the tail ends exactly at their boundary
 
-    model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint,
-                    loss_type=args.loss_type, weighted=args.weighted,
-                    lr=1e-3 if args.lr is None else args.lr, ewc=args.ewc,
-                    ewc_lambda=args.ewc_lambda)
+    if vp:
+        for flag, on in (("--ewc", args.ewc), ("--loss_type", args.loss_type != "kldiv")):
+            if on:
+                print(f"{flag} applies to the vv model only; ignored", flush=True)
+        model = VPModel(args.seed, args.device,
+                        checkpoint_path=resolve_ckpt(args.checkpoint, "vp"),
+                        lr=1e-4 if args.lr is None else args.lr, weighted=args.weighted)
+    else:
+        model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint,
+                        loss_type=args.loss_type, weighted=args.weighted,
+                        lr=1e-3 if args.lr is None else args.lr, ewc=args.ewc,
+                        ewc_lambda=args.ewc_lambda)
     if args.load_model and not args.new:
         model.load()
 
     iters_per_val, max_iters = args.iters_per_val, args.max_iters
-    extra = {}
+    # only the VV net runs the grad-norm watchdog
+    extra = {} if vp else {"dump_dir": args.dump_dir}
     if args.epoch_mode:
         iters_per_val = max(len(cols[1]) // args.batch_size, 1)
         max_iters = 10**9 if args.early_stopping else args.epochs * iters_per_val
@@ -170,13 +189,12 @@ def main(argv=None):
         validation_fraction=args.val_fraction, validation_rows=val_rows,
         early_stopping=args.early_stopping,
         early_stopping_patience=args.early_stopping_patience, shuffle=shuffle,
-        min_iters=max(args.min_iters, 0), max_iters=max_iters, dump_dir=args.dump_dir,
-        **extra)
+        min_iters=max(args.min_iters, 0), max_iters=max_iters, **extra)
     seconds = time.perf_counter() - t0
     iters = history[-1][0] if history else 0
     print(f"Trained {iters} iterations in {seconds:.2f}s "
           f"({iters / max(seconds, 1e-9):.1f} iterations/s)", flush=True)
-    if args.ewc:
+    if args.ewc and not vp:
         model.compute_fisher(cols)
     model.save(verbose=True)
     if args.save_loss:

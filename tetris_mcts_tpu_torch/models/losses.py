@@ -1,7 +1,7 @@
-"""The VV net's losses (counterpart of the reference package's
-`models/losses.py`, the value/variance family only). Each returns
-per-sample losses (B,); reduction and sample weighting happen in the
-trainer (`train/trainer.py`).
+"""The nets' losses (counterpart of the reference package's
+`models/losses.py`: the value/variance family and the VP net's two). Each
+returns per-sample losses (B,); reduction and sample weighting happen in
+the trainer (`train/trainer.py`).
 """
 
 from __future__ import annotations
@@ -54,3 +54,20 @@ def vv_loss(loss_type: str):
     if loss_type == "mse":
         return lambda vp, mp, v, m: mse(mp, m) + mse(vp, v)
     raise ValueError(f"unknown loss_type {loss_type!r}")
+
+
+def smooth_l1(pred, target, beta=1.0):
+    """The VP net's value loss: 0.5 * d^2 / beta where d = |pred - target|
+    < beta, else d - 0.5 * beta."""
+    diff = torch.abs(pred - target)
+    return torch.where(diff < beta, 0.5 * diff**2 / beta, diff - 0.5 * beta)
+
+
+def kl_div_policy(logits, target_probs, label_smoothing=0.1):
+    """The VP net's policy loss: KL(t || softmax(logits)) with the target
+    smoothed to t = target * (1 - s) + s / n; the log of t is taken of t
+    clipped at 1e-12. Per-sample (B,)."""
+    n = logits.shape[-1]
+    t = target_probs * (1.0 - label_smoothing) + label_smoothing / n
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.sum(t * (torch.log(torch.clamp_min(t, 1e-12)) - logp), dim=-1)

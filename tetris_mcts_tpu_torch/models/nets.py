@@ -1,6 +1,7 @@
-"""The value/variance net (`VVNet`) as an NCHW `nn.Module`.
+"""The value/variance net (`VVNet`) and the value/policy net (`VPNet`) as
+NCHW `nn.Module`s.
 
-Counterpart of the reference package's `models/nets.py` `VVNet`: three 3x3
+Counterpart of the reference package's `models/nets.py`. `VVNet`: three 3x3
 VALID convs (32 filters) with ReLU, FC 1792 -> 256 with ReLU, FC 256 -> 2,
 then sigmoid scaled to [lbound, lbound + ubound]. The bounds are arguments,
 not weights (the reference rescales them between training sessions).
@@ -10,6 +11,15 @@ JAX package computes the forward as XLA convolutions outside any Pallas
 kernel, so the port uses `F.conv2d` / `F.linear`. `compute_dtype`
 (bfloat16 for `--bf16`) covers the conv and fc1 body; the 2-unit head
 always runs in float32, as in the reference.
+
+`VPNet`: two 3x3 VALID convs (32 filters), each followed by GroupNorm (8
+groups) and ReLU, then two streams from the 16 x 6 x 32 features: FC 3072
+-> 128 with ReLU -> 1 value (its bias initialised to 100), and FC 3072 ->
+128 with ReLU -> 7 policy logits. The GroupNorm is flax's: statistics in
+float32 over each group's channels and positions, the variance as
+E[x^2] - E[x]^2 clamped at 0, epsilon 1e-6, then (x - mean) * (rsqrt(var +
+eps) * scale) + bias. `compute_dtype` covers the conv, norm and 128-unit FC
+body; both heads run in float32.
 
 Precision on a CUDA card: the default (float32) path computes in true
 float32. cuDNN convolutions would run in TF32 under PyTorch's default
@@ -74,3 +84,53 @@ class VVNet(nn.Module):
         x = F.relu(F.linear(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
         x = F.linear(x.float(), self.fc_out.weight, self.fc_out.bias)
         return torch.sigmoid(x) * ubound + lbound
+
+
+GN_GROUPS, GN_EPS = 8, 1e-6  # flax GroupNorm(num_groups=8), its default epsilon
+
+
+def group_norm(x, weight, bias, groups: int = GN_GROUPS, eps: float = GN_EPS):
+    """flax's GroupNorm on NCHW x: float32 statistics per (sample, group),
+    var = max(E[x^2] - E[x]^2, 0); the result in x's dtype."""
+    n, c = x.shape[:2]
+    xf = x.float()
+    g = xf.reshape(n, groups, -1)
+    mean = g.mean(-1)
+    var = torch.clamp_min((g * g).mean(-1) - mean * mean, 0.0)
+    rep = lambda s: s.repeat_interleave(c // groups, 1)[:, :, None, None]
+    mul = torch.rsqrt(rep(var) + eps) * weight[None, :, None, None]
+    y = (xf - rep(mean)) * mul + bias[None, :, None, None]
+    return y.to(x.dtype)
+
+
+class VPNet(nn.Module):
+    def __init__(self, filters: int = 32, n_fc: int = 128, seed: int = 0):
+        super().__init__()
+        self.conv1 = nn.Conv2d(1, filters, 3)
+        self.norm1 = nn.GroupNorm(GN_GROUPS, filters, eps=GN_EPS)
+        self.conv2 = nn.Conv2d(filters, filters, 3)
+        self.norm2 = nn.GroupNorm(GN_GROUPS, filters, eps=GN_EPS)
+        self.fc_v = nn.Linear(filters * 16 * 6, n_fc)
+        self.value = nn.Linear(n_fc, 1)
+        self.fc_p = nn.Linear(filters * 16 * 6, n_fc)
+        self.policy = nn.Linear(n_fc, 7)
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for m in (self.conv1, self.conv2, self.fc_v, self.value, self.fc_p, self.policy):
+                _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+                m.bias.zero_()
+            self.value.bias.fill_(100.0)  # the reference's optimistic value head
+
+    def forward(self, x, compute_dtype=None):
+        """x (n, 1, 20, 10) -> (value (n, 1), policy logits (n, 7)), float32."""
+        dt = compute_dtype or torch.float32
+        x = x.to(dt)
+        with tf32_off():
+            for conv, norm in ((self.conv1, self.norm1), (self.conv2, self.norm2)):
+                x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt))
+                x = F.relu(group_norm(x, norm.weight, norm.bias))
+        x = x.flatten(1)  # (c, y, x) order
+        v = F.relu(F.linear(x, self.fc_v.weight.to(dt), self.fc_v.bias.to(dt)))
+        p = F.relu(F.linear(x, self.fc_p.weight.to(dt), self.fc_p.bias.to(dt)))
+        return (F.linear(v.float(), self.value.weight, self.value.bias),
+                F.linear(p.float(), self.policy.weight, self.policy.bias))

@@ -105,19 +105,17 @@ def _perm7_decode(r):
 
 def predraw(k0, k1, ctr, randomizer):
     """The piece-draw product of state (k0, k1, ctr): the uniform piece id
-    (B,), or the decoded refill bag (B, 7). All 7 children of one parent
-    share it."""
+    (B,), or the decoded refill bag (B, 7)."""
     word = _threefry(k0, k1, ctr)
     if randomizer == 1:
         return _mod_const(word, 7)
     return _perm7_decode(_mod_const(word, 5040))
 
 
-def _draw_piece(bag, bag_pos, k0, k1, ctr, randomizer, predrawn=None):
+def _draw_piece(bag, bag_pos, k0, k1, ctr, randomizer):
     """`engine._draw_piece` on columns: returns (piece, bag, bag_pos, ctr).
     ctr advances only when a draw is taken."""
-    if predrawn is None:
-        predrawn = predraw(k0, k1, ctr, randomizer)
+    predrawn = predraw(k0, k1, ctr, randomizer)
     if randomizer == 1:
         return predrawn, bag, bag_pos, (ctr + 1) & MASK32
     need = bag_pos >= 7
@@ -163,12 +161,11 @@ def packed_obs(env):
     return (c["rows"] | (prow << 10)).to(torch.int32)
 
 
-def spawn_columns(c, randomizer, predrawn=None):
+def spawn_columns(c, randomizer):
     """`engine._spawn` on columns: draw the next piece, place it at the
     spawn point, end the game if it collides. Returns new columns."""
     piece, bag, bag_pos, ctr = _draw_piece(
         c["bag"], c["bag_pos"], c["k0"], c["k1"], c["ctr"], randomizer,
-        predrawn,
     )
     dy, dx = _cells_spawn(piece)
     dead = _collides(c["rows"], SPAWN_Y + dy, SPAWN_X + dx)
@@ -180,12 +177,9 @@ def spawn_columns(c, randomizer, predrawn=None):
     )
 
 
-def packed_step(env, act, *, actions_per_drop=1, scoring=0, randomizer=0,
-                predrawn=None):
+def packed_step(env, act, *, actions_per_drop=1, scoring=0, randomizer=0):
     """`engine.step` on packed states. env (B, 44) int32, act (B,) integer.
-    Returns the stepped (B, 44) int32; ended games are unchanged.
-    `predrawn` (from `predraw` on THIS state's k0/k1/ctr) shares the spawn
-    draw across sibling steps."""
+    Returns the stepped (B, 44) int32; ended games are unchanged."""
     c = unpack_columns(env)
     a = act.reshape(-1).to(torch.int64)
     rows = c["rows"]
@@ -249,7 +243,7 @@ def packed_step(env, act, *, actions_per_drop=1, scoring=0, randomizer=0,
         moved, rows=cleared_rows, score=score + gained,
         combo=torch.where(cleared, c["combo"] + 1, 0),
         lines=c["lines"] + n, line_stats=stats,
-    ), randomizer, predrawn)
+    ), randomizer)
 
     out = pack_columns({
         k: torch.where(

@@ -113,7 +113,6 @@ def select_walk_plain(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):
     (traces (B, D) int32, lengths (B,) int32, leafs (B,) int32,
     leaf_env (B, 44) int32, child_packed (B, 7, 20) int32,
     child_score (B, 7) int32, child_end (B, 7) int32)."""
-    env_cfg = cfg.env
     B = trees.root.shape[0]
     D = cfg.max_depth
     dev = trees.root.device
@@ -126,8 +125,7 @@ def select_walk_plain(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):
     sc = trees.nstat[b, 0, idx]
     env = trees.root_env.clone()
     done = torch.zeros(B, dtype=torch.bool, device=dev)
-    step_kw = dict(actions_per_drop=env_cfg.actions_per_drop,
-                   scoring=env_cfg.scoring, randomizer=env_cfg.randomizer)
+    step_kw = T.env_kw(cfg)
     for depth in range(D):
         if bool(done.all()):
             break
@@ -161,17 +159,9 @@ def select_walk_plain(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):
         idx = torch.where(any_kid, nxt, idx)
         sc = torch.where(any_kid, sc_n, sc)
         done = done | newly_done
-    c = EP.unpack_columns(env)
-    pre = EP.predraw(c["k0"], c["k1"], c["ctr"], env_cfg.randomizer)
-    packed, score, end = [], [], []
-    for a in range(N_ACTIONS):
-        ch = EP.packed_step(env, torch.full((B,), a, device=dev), predrawn=pre,
-                            **step_kw)
-        packed.append(EP.packed_obs(ch))
-        score.append(ch[:, 36])
-        end.append(ch[:, 43])
-    return (traces, lengths, leafs.to(torch.int32), env,
-            torch.stack(packed, 1), torch.stack(score, 1), torch.stack(end, 1))
+    _, packed, score, end = T.expand_children(env, cfg)
+    return (traces, lengths, leafs.to(torch.int32), env, packed, score,
+            end.to(torch.int32))
 
 
 def select_walk(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):

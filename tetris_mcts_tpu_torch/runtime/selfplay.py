@@ -1,7 +1,10 @@
-"""Self-play driver, online (storage and training) or in benchmark mode
+"""Self-play drivers, online (storage and training) or in benchmark mode
 (counterpart of the reference package's `runtime/selfplay.py`
-`_OnlineDriverBase` and `SelfPlayDriver`), with the lp, leaf or rollout
-evaluator (`SelfPlayConfig.evaluator`).
+`_OnlineDriverBase`, `SelfPlayDriver` and `VPSelfPlayDriver`):
+`SelfPlayDriver` with the lp, leaf or rollout evaluator on the VV net, or a
+policy playout (hybrid, finite, full) on the VP net
+(`SelfPlayConfig.evaluator`); `VPSelfPlayDriver` the ApproxPolicyIter
+search (`search/vp.py`) with the VP net.
 
 B games play MCTS moves in lockstep; each move is one call of the move
 program (`search/mcts.make_move_fn`), which stays on the device and, in
@@ -27,7 +30,10 @@ Online training follows the reference:
   rows at the front.
 
 The model is shared with the search: a session updates the net's params in
-place and rescales `ubound`, and the next move's forward reads both. A
+place (and the VV model rescales `ubound`), and the next move's forward
+reads them. A session trains on the model's own columns of the ring:
+[states, value, variance, weight] for VV, [states, value, policy (7),
+weight] for VP. A
 benchmark channel (`benchmark_every`) plays rounds of games on a twin
 driver in benchmark mode that shares the model. Metrics go to an optional
 `obs.metrics.MetricsWriter`.
@@ -59,15 +65,16 @@ from tetris_mcts_tpu_torch.ops import env_packed as EP
 from tetris_mcts_tpu_torch.runtime import watchdog
 from tetris_mcts_tpu_torch.search import mcts
 from tetris_mcts_tpu_torch.search import tree as T
+from tetris_mcts_tpu_torch.search import vp as VP
 from tetris_mcts_tpu_torch.search.mcts import SearchConfig
 from tetris_mcts_tpu_torch.search.tree import TreeConfig
-from tetris_mcts_tpu_torch.train.trainer import VVModel
+from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
 
 
 class SelfPlayConfig(NamedTuple):
     batch: int = 64
     sims: int = 100
-    evaluator: str = "lp"  # "lp" | "leaf" | "rollout" (mcts.EVALUATORS)
+    evaluator: str = "lp"  # mcts.EVALUATORS, or "vp" (VPSelfPlayDriver)
     max_nodes: int = 4096
     max_obs: int = 4096
     table_size: int = 8192
@@ -93,6 +100,8 @@ class SelfPlayConfig(NamedTuple):
     benchmark_max_moves: int = 5000
     benchmark_max_nodes: int = 0   # 0 = auto-scale for benchmark_sims
     episode_reuse: bool = False    # done lanes re-root in their own pool
+    rollout_depth: int = 0         # policy-playout depth; 0 = the agent's
+                                   # (HybridSim 30, FiniteSim 50, FullSim to the end)
     bf16: bool = False             # bfloat16 body in the search's forward
     checkpoint_each_train: bool = False  # save the model after each session
     dump_dir: str = ""             # write dump.npz of each session's set
@@ -134,17 +143,20 @@ class _OnlineDriverBase:
     """The host loop: episode bookkeeping, the training triggers
     (`_maybe_train` for acc_policy -1, `_acc_policy_step` for 0-3), the
     sessions, the benchmark channel and the throughput reports. A subclass
-    owns the move program, the model and the replay ring (`self.model`,
-    `self.replay`, `self.device`) and provides `step`,
-    `_training_columns(order)`, `_trim_uniforms(n)` and
+    owns the move program, the model, the trees and the replay ring
+    (`self.model`, `self.trees`, `self.replay`) and provides `step`,
+    `_saver_extras(stats)`, `_training_columns(order)` and
     `_reinit_games(seed)`."""
 
     _TP_REPORT_EVERY = 50    # moves per throughput report, or a window of
     _TP_REPORT_SECONDS = 25  # >= 4 moves older than this (sessions restart it)
 
-    def _init_bookkeeping(self, cfg: SelfPlayConfig, log, metrics, saver=None,
-                          status=None):
+    def _init_bookkeeping(self, cfg: SelfPlayConfig, log, metrics, saver=None, status=None,
+                          device="cpu"):
         self.cfg = cfg
+        self.device = torch.device(device)
+        self._trim_gen = torch.Generator(device=self.device)
+        self._trim_gen.manual_seed(cfg.seed)
         # an installed stall watchdog is beaten by every log line; the
         # benchmark twin inherits the wrapped log
         self._watchdog = watchdog.get_active()
@@ -392,10 +404,10 @@ class _OnlineDriverBase:
         if cfg.checkpoint_each_train:
             self.model.save()
         if self.metrics is not None:
-            last = hist[-1] if hist else (0, float("nan"), float("nan"), 0.0, None)
+            last = hist[-1] if hist else (0, float("nan"), float("nan"), 0.0)
             self.metrics.write("train_session", n=self.n_trains, rows=use,
                                seconds=seconds, iters=last[0], loss_train=last[1],
-                               loss_val=last[2], grad_norm=last[4])
+                               loss_val=last[2], grad_norm=last[4] if len(last) > 4 else None)
         return True
 
     def _dump_training_data(self, data):
@@ -553,6 +565,10 @@ class _OnlineDriverBase:
                 snapshot=snap_name)
         self._restart_throughput()
 
+    def _trim_uniforms(self, n: int):
+        """Uniform draws (n,) of the random trim."""
+        return torch.rand(n, generator=self._trim_gen, device=self.device)
+
     def run(self, n_moves: int):
         for _ in range(n_moves):
             self.step()
@@ -564,6 +580,27 @@ class _OnlineDriverBase:
             self.step()
             moves += 1
 
+    def save_nodes(self, path: str, min_visits: int = 1):
+        """Write every tree's searched observations (each obs slot in use,
+        not terminal, with at least `min_visits` visits) to `path` with
+        `np.savez`: board (n, 20, 10) int8, value, variance, visit (n,)
+        float32 and game (n,) int64, the tree's lane, in lane-major order."""
+        packed, val, var, w, mask = T.harvest(self.trees, min_visits)
+        lanes = torch.arange(mask.shape[0], device=mask.device)[:, None].expand_as(mask)
+        cols = dict(board=engine.unpack_obs(packed[mask]), value=val[mask],
+                    variance=var[mask], visit=w[mask], game=lanes[mask].to(torch.int64))
+        np.savez(path, **{k: v.cpu().numpy() for k, v in cols.items()})
+        self.log(f"saved {int(cols['game'].shape[0])} nodes to {path}")
+
+
+def tree_config(cfg: SelfPlayConfig) -> TreeConfig:
+    """The search's tree configuration of a self-play configuration."""
+    return TreeConfig(
+        max_nodes=cfg.max_nodes, max_obs=cfg.max_obs, table_size=cfg.table_size,
+        max_depth=cfg.max_depth, gamma=cfg.gamma, policy=cfg.policy, low=cfg.low,
+        env=EnvConfig(actions_per_drop=cfg.actions_per_drop, scoring=cfg.scoring,
+                      randomizer=cfg.randomizer))
+
 
 class SelfPlayDriver(_OnlineDriverBase):
     """Owns the model (weights made from cfg.seed unless one is given), the
@@ -572,22 +609,19 @@ class SelfPlayDriver(_OnlineDriverBase):
     seeded from cfg.seed. `run(n_moves)` / `run_episodes(n)` advance
     self-play; in online mode training sessions fire from the gates."""
 
-    def __init__(self, cfg: SelfPlayConfig, model: VVModel | None = None,
+    def __init__(self, cfg: SelfPlayConfig, model: VVModel | VPModel | None = None,
                  device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
                  metrics=None, saver=None, status=None):
         """`saver`: a `utils.data.DataSaver` (per-move rows); `status`: an
-        `obs.metrics.StatusPublisher` (live-state memmaps)."""
-        self._init_bookkeeping(cfg, log, metrics, saver, status)
-        self.device = torch.device(device)
-        self.model = model if model is not None else VVModel(cfg.seed, self.device)
-        tree_cfg = TreeConfig(
-            max_nodes=cfg.max_nodes, max_obs=cfg.max_obs,
-            table_size=cfg.table_size, max_depth=cfg.max_depth,
-            gamma=cfg.gamma, policy=cfg.policy, low=cfg.low,
-            env=EnvConfig(actions_per_drop=cfg.actions_per_drop,
-                          scoring=cfg.scoring, randomizer=cfg.randomizer),
-        )
-        self.search_cfg = SearchConfig(tree=tree_cfg, sims=cfg.sims,
+        `obs.metrics.StatusPublisher` (live-state memmaps). The policy
+        playouts (hybrid, finite, full) run on a `VPModel`, the other
+        evaluators on a `VVModel`."""
+        self._init_bookkeeping(cfg, log, metrics, saver, status, device)
+        playout = cfg.evaluator in mcts.POLICY_PLAYOUTS
+        if model is None:
+            model = (VPModel if playout else VVModel)(cfg.seed, self.device)
+        self.model = model
+        self.search_cfg = SearchConfig(tree=tree_config(cfg), sims=cfg.sims,
                                        evaluator=cfg.evaluator)
         self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
@@ -597,6 +631,11 @@ class SelfPlayDriver(_OnlineDriverBase):
             evaluator = mcts.nn_leaf_evaluator(apply_fn)
         elif cfg.evaluator == "rollout":
             evaluator = mcts.rollout_evaluator(self.search_cfg, self.planes.actions)
+        elif playout:
+            evaluator = mcts.policy_rollout_evaluator(
+                apply_fn, self.search_cfg,
+                mcts.playout_depth(self.search_cfg, cfg.rollout_depth),
+                bootstrap=mcts.POLICY_PLAYOUTS[cfg.evaluator][1], draw=self.planes.gumbels)
         else:
             raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
         self.evaluator = evaluator
@@ -607,8 +646,6 @@ class SelfPlayDriver(_OnlineDriverBase):
         self.trees, self.envs = mcts.init_batch(cfg.seed, cfg.batch,
                                                 self.search_cfg, self.device)
         self.replay = mcts.init_replay(cfg.memory_size, self.device)
-        self._trim_gen = torch.Generator(device=self.device)
-        self._trim_gen.manual_seed(cfg.seed)
 
     def _reinit_games(self, seed: int):
         self.trees, self.envs = mcts.init_batch(seed, self.cfg.batch,
@@ -626,10 +663,6 @@ class SelfPlayDriver(_OnlineDriverBase):
         search-statistics columns."""
         return stats.child_stats, stats.root_var
 
-    def _trim_uniforms(self, n: int):
-        """Uniform draws (n,) of the random trim."""
-        return torch.rand(n, generator=self._trim_gen, device=self.device)
-
     def _training_columns(self, order):
         """[states int8 (n, 20, 10), value, var, weight] of the ring rows
         `order`, on the device; the boards are unpacked here."""
@@ -638,17 +671,61 @@ class SelfPlayDriver(_OnlineDriverBase):
         return [engine.unpack_obs(rep.boards[o]), rep.value[o], rep.var[o],
                 rep.weight[o]]
 
-    def save_nodes(self, path: str, min_visits: int = 1):
-        """Write every tree's searched observations (each obs slot in use,
-        not terminal, with at least `min_visits` visits) to `path` with
-        `np.savez`: board (n, 20, 10) int8, value, variance, visit (n,)
-        float32 and game (n,) int64, the tree's lane, in lane-major order."""
-        packed, val, var, w, mask = T.harvest(self.trees, min_visits)
-        lanes = torch.arange(mask.shape[0], device=mask.device)[:, None].expand_as(mask)
-        cols = dict(board=engine.unpack_obs(packed[mask]), value=val[mask],
-                    variance=var[mask], visit=w[mask], game=lanes[mask].to(torch.int64))
-        np.savez(path, **{k: v.cpu().numpy() for k, v in cols.items()})
-        self.log(f"saved {int(cols['game'].shape[0])} nodes to {path}")
+
+class VPSelfPlayDriver(_OnlineDriverBase):
+    """The ApproxPolicyIter driver (the reference `VPSelfPlayDriver`):
+    policy-sampled selection, value + improvement-policy backup, and online
+    training of the VP net, on the same host loop as `SelfPlayDriver`. Its
+    randomness is a `mcts.TorchPlanes` on the device seeded from cfg.seed."""
+
+    def __init__(self, cfg: SelfPlayConfig, model: VPModel | None = None,
+                 device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
+                 metrics=None, saver=None, status=None):
+        self._init_bookkeeping(cfg, log, metrics, saver, status, device)
+        self.model = model if model is not None else VPModel(cfg.seed, self.device)
+        self.search_cfg = SearchConfig(tree=tree_config(cfg), sims=cfg.sims, evaluator="vp")
+        self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        self._move = VP.make_vp_move_fn(
+            self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None), self.search_cfg,
+            self.planes, min_visits_store=cfg.min_visits_store, store=not cfg.benchmark)
+        self.vtrees, self.envs = VP.init_vp_batch(cfg.seed, cfg.batch, self.search_cfg,
+                                                  self.device)
+        self.replay = VP.init_vp_replay(cfg.memory_size, self.device)
+
+    @property
+    def trees(self):
+        """The search trees without the priors and counts (`save_nodes`)."""
+        return self.vtrees.base
+
+    def _reinit_games(self, seed: int):
+        self.vtrees, self.envs = VP.init_vp_batch(seed, self.cfg.batch, self.search_cfg,
+                                                  self.device)
+        self.planes.gen.manual_seed(seed)
+
+    def step(self):
+        """One batched move (B games advance one action each)."""
+        envs_prev = self.envs
+        self.envs, stats = self._move(self.vtrees, self.envs, self.replay)
+        return self._after_move(stats, envs_prev)
+
+    def _saver_extras(self, stats):
+        """Zeros for the saver's child_stats and variance: the VP search
+        keeps no variance statistics (the reference saves zeros too)."""
+        B = stats.action.shape[0]
+        return (torch.zeros(B, 3, T.N_ACTIONS, device=self.device),
+                torch.zeros(B, device=self.device))
+
+    def _training_columns(self, order):
+        """[states int8 (n, 20, 10), value, policy (n, 7), weight] of the
+        ring rows `order`, on the device."""
+        o = torch.as_tensor(order, device=self.device)
+        rep = self.replay
+        return [engine.unpack_obs(rep.boards[o]), rep.value[o], rep.policy[o],
+                rep.weight[o]]
+
+    def _dump_training_data(self, data):
+        """No training-set dump for the VP model (the reference dumps the VV
+        model's only)."""
 
 
 def _host_read(parts):

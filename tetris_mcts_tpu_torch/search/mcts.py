@@ -1,5 +1,5 @@
-"""Batched MCTS moves with the leaf-parallel, leaf and rollout evaluators,
-and the on-device replay ring that online self-play trains from.
+"""Batched MCTS moves with the leaf-parallel, leaf, rollout and policy-playout
+evaluators, and the on-device replay ring that online self-play trains from.
 
 Counterpart of the reference package's `search/mcts.py`. One simulation
 for all B trees:
@@ -20,6 +20,11 @@ leaf env (B, 44):
 - "rollout" (Vanilla, VanillaC, Random): a uniform-random playout of at
   most `rollout_cap` steps from the leaf env; the backup kernel walks up
   v0 = the playout's final score with variance `rollout_variance`.
+- "hybrid", "finite", "full" (HybridSim, FiniteSim, FullSim): a playout
+  guided by the VP net's policy (`policy_rollout_evaluator`), 30, 50 or
+  `rollout_cap` steps deep (or `--rollout_depth`), HybridSim adding the
+  net's value at the playout's end where the game goes on; backed up as
+  the rollout's is.
 
 A lane that did not expand (a terminal leaf, or no room) backs up
 (leaf score, 0) in the leaf and rollout modes.
@@ -41,7 +46,9 @@ playout has ended.
 
 Randomness: the select walk takes pre-drawn (B, D, 7) gumbel planes (and
 per-child planes for the mc/random policies), the rollout one action draw
-per step, and the store drop one uniform a harvested row. `TorchPlanes`
+per step, a policy playout (B, 7) gumbels per step, the VP select walk
+(`search/vp.py`) (B, D) uniforms, and the store drop one uniform a
+harvested row. `TorchPlanes`
 draws all of them from a `torch.Generator` on the device; a test can pass
 any other source, for example one that replays the JAX key schedule.
 """
@@ -62,7 +69,10 @@ from tetris_mcts_tpu_torch.search.tree import Tree, TreeConfig
 N_ACTIONS = T.N_ACTIONS
 
 
-EVALUATORS = ("lp", "leaf", "rollout")
+EVALUATORS = ("lp", "leaf", "rollout", "hybrid", "finite", "full")
+# the policy playouts: evaluator -> (the reference's depth, bootstraps);
+# FullSim plays to the game's end, at most rollout_cap steps
+POLICY_PLAYOUTS = {"hybrid": (30, True), "finite": (50, False), "full": (None, False)}
 # playout steps between two checks of "every playout has ended" (a host
 # read); ended lanes are no-ops under packed_step, so the check only saves
 # steps and never changes a result
@@ -72,8 +82,8 @@ ROLLOUT_EXIT_EVERY = 16
 class SearchConfig(NamedTuple):
     tree: TreeConfig = TreeConfig()
     sims: int = 100
-    evaluator: str = "lp"          # "lp" | "leaf" | "rollout"
-    rollout_cap: int = 512         # max random-playout length (rollout mode)
+    evaluator: str = "lp"          # one of EVALUATORS
+    rollout_cap: int = 512         # max playout length (rollout, full)
     rollout_variance: float = 1e3  # fixed rollout variance (Vanilla.py:54)
 
 
@@ -93,8 +103,9 @@ class MoveStats(NamedTuple):
 class TorchPlanes:
     """Per-simulation randomness from a torch.Generator: the select walk's
     gumbels (B, D, 7), and normal (mc) or gumbel (random) per-child planes
-    for those policies, zeros otherwise (`__call__`); and the rollout's
-    uniform action draws (`actions`)."""
+    for those policies, zeros otherwise (`__call__`); the rollout's uniform
+    action draws (`actions`), a policy playout's gumbels (`gumbels`), and
+    the VP select walk's uniforms (`uniforms`)."""
 
     def __init__(self, seed: int, device, policy: str = "clt"):
         self.gen = torch.Generator(device=device)
@@ -121,6 +132,14 @@ class TorchPlanes:
         """Uniform actions (B,) for playout step `step` of a rollout."""
         return torch.randint(0, N_ACTIONS, (B,), generator=self.gen,
                              device=self.device)
+
+    def gumbels(self, B: int, step: int):
+        """Gumbels (B, 7) for playout step `step` of a policy playout."""
+        return self._gumbel((B, N_ACTIONS))
+
+    def uniforms(self, B: int, D: int):
+        """Uniform [0, 1) draws (B, D) of the VP select walk, one a level."""
+        return torch.rand((B, D), generator=self.gen, device=self.device)
 
     def drop(self, shape):
         """Uniform [0, 1) draws of the store drop, one a harvested row."""
@@ -158,8 +177,7 @@ def rollout_evaluator(cfg: SearchConfig, draw: Callable):
     advance in lockstep; ended lanes are no-ops. draw(B, step) gives the
     actions (B,) of each step (`TorchPlanes.actions`). `ev.steps` holds the
     number of steps the last call ran."""
-    env_kw = dict(actions_per_drop=cfg.tree.env.actions_per_drop,
-                  scoring=cfg.tree.env.scoring, randomizer=cfg.tree.env.randomizer)
+    env_kw = T.env_kw(cfg.tree)
 
     def ev(packed7, leaf_env):
         B = leaf_env.shape[0]
@@ -178,6 +196,54 @@ def rollout_evaluator(cfg: SearchConfig, draw: Callable):
     return ev
 
 
+def policy_rollout_evaluator(vp_fn: Callable, cfg: SearchConfig, depth: int,
+                             bootstrap: bool, draw: Callable):
+    """A playout guided by the VP net's policy from the leaf env, at most
+    `depth` steps (the HybridSim, FiniteSim and FullSim agents): each step
+    is one forward of the net on the B boards, the action a ~
+    softmax(logits) drawn as the first argmax of logits + gumbels (draw(B,
+    step) gives the (B, 7) gumbels, `TorchPlanes.gumbels`), and one packed
+    step; ended lanes are no-ops. value = the playout's final score, plus
+    with `bootstrap` the net's value at the final state where the game has
+    not ended; variance cfg.rollout_variance. vp_fn: float images (n, 1, 20,
+    10) -> (v (n,), logits (n, 7)). The loop checks "every playout has
+    ended" every ROLLOUT_EXIT_EVERY steps. `ev.steps` holds the steps of
+    the last call."""
+    env_kw = T.env_kw(cfg.tree)
+
+    def imgs(env):
+        return engine.unpack_obs(EP.packed_obs(env))[:, None].float()
+
+    def ev(packed7, leaf_env):
+        B = leaf_env.shape[0]
+        a7 = torch.arange(N_ACTIONS, device=leaf_env.device)
+        env = leaf_env
+        step = 0
+        while step < depth:
+            if step % ROLLOUT_EXIT_EVERY == 0 and bool((env[:, 43] != 0).all()):
+                break
+            _, logits = vp_fn(imgs(env))
+            x = logits.float() + draw(B, step)
+            a = torch.where(x == x.max(1, keepdim=True).values, a7, N_ACTIONS).amin(1)
+            env = EP.packed_step(env, a, **env_kw)
+            step += 1
+        ev.steps = step
+        value = env[:, 36].to(torch.float32)
+        if bootstrap:
+            v, _ = vp_fn(imgs(env))
+            value = value + torch.where(env[:, 43] != 0, 0.0, v.float())
+        return value, torch.full((B,), cfg.rollout_variance, device=value.device)
+
+    ev.steps = 0
+    return ev
+
+
+def playout_depth(cfg: SearchConfig, rollout_depth: int = 0) -> int:
+    """A policy playout's depth: `rollout_depth` when set, else the
+    reference's (HybridSim 30, FiniteSim 50, FullSim rollout_cap)."""
+    return rollout_depth or POLICY_PLAYOUTS[cfg.evaluator][0] or cfg.rollout_cap
+
+
 def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
     """`run(trees)`: cfg.sims simulations on B trees, in place."""
     tcfg = cfg.tree
@@ -192,9 +258,7 @@ def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
         b = torch.arange(B, device=leafs.device)
         lc = leafs.long()
         childless = trees.cbase[b, lc] == 0
-        headroom = (trees.n_nodes + N_ACTIONS <= tcfg.max_nodes) & (
-            trees.n_obs + N_ACTIONS <= tcfg.max_obs)
-        can = ~trees.end[b, lc] & childless & headroom
+        can = ~trees.end[b, lc] & childless & T.headroom(trees, tcfg)
         end7 = child_end7 != 0
         obs7 = tree_walk.insert_obs7(trees, packed7, end7, can, tcfg)
         T.expand_commit(trees, child_sc7, end7, obs7, leafs, can)
@@ -204,9 +268,9 @@ def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
             tree_walk.lp_backup(trees, traces, lengths, v, var, can, tcfg)
             return
         leaf_score = trees.nstat[b, 0, lc]
-        # leaf: absolute value = leaf score + net value; rollout: the
-        # playout's absolute final score. Lanes that did not expand back up
-        # (leaf score, 0) (`agents/ValueSim.py:83-93`).
+        # leaf: absolute value = leaf score + net value; the playouts: the
+        # playout's absolute final score (plus HybridSim's bootstrap). Lanes
+        # that did not expand back up (leaf score, 0) (`agents/ValueSim.py:83-93`).
         v0 = torch.where(can, leaf_score + v if cfg.evaluator == "leaf" else v,
                          leaf_score)
         var0 = torch.where(can, var, 0.0)
@@ -246,8 +310,7 @@ def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes,
     tcfg = cfg.tree
     run_sims = make_run_sims(evaluator, cfg, planes)
     guard = capacity_guard_for(cfg.sims, tcfg)
-    env_kw = dict(actions_per_drop=tcfg.env.actions_per_drop,
-                  scoring=tcfg.env.scoring, randomizer=tcfg.env.randomizer)
+    env_kw = T.env_kw(tcfg)
 
     def move(trees: Tree, envs, replay: "Replay | None" = None):
         if store and replay is None:
@@ -324,10 +387,13 @@ class Replay:
     cand: torch.Tensor
     drop_prob: torch.Tensor
 
+    def arrays(self):
+        """The row arrays (boards, value, var, weight), sink included."""
+        return self.boards, self.value, self.var, self.weight
+
     def rows(self):
         """The ring rows (boards, value, var, weight), sink excluded."""
-        R = self.capacity
-        return self.boards[:R], self.value[:R], self.var[:R], self.weight[:R]
+        return tuple(a[:self.capacity] for a in self.arrays())
 
 
 def init_replay(capacity: int, device="cuda") -> Replay:
@@ -344,21 +410,17 @@ def _sink(R, n, device):
     return R + torch.arange(n, device=device) % REPLAY_SINK
 
 
-def _scatter_rows(rep: Replay, dst, cols):
-    for a, x in zip((rep.boards, rep.value, rep.var, rep.weight), cols):
+def _scatter_rows(rep, dst, cols):
+    for a, x in zip(rep.arrays(), cols):
         a.index_put_((dst,), x)
 
 
-def replay_add(rep: Replay, packed, value, var, weight, mask, mask_candidates=None):
-    """Append the masked rows (any leading shape, flattened) at the ring's
-    head, in place. When one call holds more than `capacity` rows only the
-    newest `capacity` are kept. `mask_candidates` (default `mask`) is
-    counted into `cand`."""
+def append_rows(rep, cols, mask, cand=None):
+    """Append the rows of `cols` (one tensor a ring array, rows first)
+    where mask (n,) at the ring's head, in place. When one call holds more
+    than `capacity` rows only the newest `capacity` are kept. `cand` (n,)
+    bool, when given, is counted into `cand`."""
     R = rep.capacity
-    mask = mask.reshape(-1)
-    cols = (packed.reshape(-1, 20), value.reshape(-1), var.reshape(-1),
-            weight.reshape(-1))
-    cand = mask if mask_candidates is None else mask_candidates.reshape(-1)
     pos = torch.cumsum(mask, 0) - 1
     n = mask.sum()
     keep = mask & (pos >= n - R)
@@ -367,7 +429,19 @@ def replay_add(rep: Replay, packed, value, var, weight, mask, mask_candidates=No
     rep.idx.copy_((rep.idx + n) % R)
     rep.count.copy_(torch.clamp_max(rep.count + n, R))
     rep.total.add_(n.to(torch.int32))
-    rep.cand.add_(cand.sum().to(torch.int32))
+    if cand is not None:
+        rep.cand.add_(cand.sum().to(torch.int32))
+
+
+def replay_add(rep: Replay, packed, value, var, weight, mask, mask_candidates=None):
+    """Append the masked rows (any leading shape, flattened) at the ring's
+    head, in place (`append_rows`). `mask_candidates` (default `mask`) is
+    counted into `cand`."""
+    mask = mask.reshape(-1)
+    cols = (packed.reshape(-1, 20), value.reshape(-1), var.reshape(-1),
+            weight.reshape(-1))
+    cand = mask if mask_candidates is None else mask_candidates.reshape(-1)
+    append_rows(rep, cols, mask, cand)
 
 
 def _logical(rep: Replay):
@@ -376,7 +450,7 @@ def _logical(rep: Replay):
     return (rep.idx - rep.count + ar) % rep.capacity, ar < rep.count
 
 
-def _replay_compact(rep: Replay, keep_logical):
+def _replay_compact(rep, keep_logical):
     """Move the kept rows (in age order) to the front of the ring, in place;
     `keep_logical` (R,) is in logical order, oldest first. Returns the rows
     dropped (a device scalar); idx = count = the rows kept."""
@@ -385,8 +459,8 @@ def _replay_compact(rep: Replay, keep_logical):
     keep = keep_logical & valid
     pos = torch.cumsum(keep, 0) - 1
     kept = keep.sum().to(torch.int32)
-    cols = [a[order] for a in (rep.boards, rep.value, rep.var, rep.weight)]
-    for a in (rep.boards, rep.value, rep.var, rep.weight):
+    cols = [a[order] for a in rep.arrays()]
+    for a in rep.arrays():
         a.zero_()
     _scatter_rows(rep, torch.where(keep, pos, _sink(R, R, rep.boards.device)), cols)
     dropped = rep.count - kept
@@ -395,7 +469,7 @@ def _replay_compact(rep: Replay, keep_logical):
     return dropped
 
 
-def replay_trim_weighted(rep: Replay, percentile: float):
+def replay_trim_weighted(rep, percentile: float):
     """`weighted_trimming`: drop every row whose weight is <= the
     `percentile` quantile of the stored weights (ties drop together),
     keeping the rest in age order, in place. Returns the rows dropped."""
@@ -407,7 +481,7 @@ def replay_trim_weighted(rep: Replay, percentile: float):
     return _replay_compact(rep, w > ws[k.clamp(0, R - 1)])
 
 
-def replay_trim_random(rep: Replay, fraction: float, u):
+def replay_trim_random(rep, fraction: float, u):
     """`random_trimming`: drop floor(count * fraction) stored rows, those
     with the smallest of the uniform draws u (R,) (in logical order),
     keeping the rest in age order, in place. Returns the rows dropped."""
@@ -419,7 +493,7 @@ def replay_trim_random(rep: Replay, fraction: float, u):
     return _replay_compact(rep, ~(valid & (uu <= thr) & (m > 0)))
 
 
-def replay_clear(rep: Replay):
+def replay_clear(rep):
     """`memory_index = 0` after a training session: the ring is emptied;
     the monotone counters stay."""
     rep.idx.zero_()

@@ -227,6 +227,68 @@ def insert_obs7_batched(trees: Tree, packed7, end7, ok, cfg: TreeConfig):
 
 
 # ---------------------------------------------------------------------------
+# leaf replay and expansion front half (the VP and policy paths)
+# ---------------------------------------------------------------------------
+
+# levels between two checks of "every lane is done" (a host read) in the
+# VP walks; done lanes are no-ops, so the check only saves levels and
+# never changes a result
+WALK_EXIT_EVERY = 4
+
+
+def env_kw(cfg: TreeConfig):
+    """`packed_step`'s env keyword arguments of the config."""
+    e = cfg.env
+    return dict(actions_per_drop=e.actions_per_drop, scoring=e.scoring,
+                randomizer=e.randomizer)
+
+
+def replay_leaf(trees: Tree, actions, lengths, cfg: TreeConfig, levels=None):
+    """Packed leaf states (B, 44) of action paths from the roots (the
+    reference `replay_leaf_batched`): lane b steps its root env by
+    actions[b, t] for t < lengths[b] - 1, all lanes in lockstep. `levels`
+    bounds the loop (the levels the select walk ran, >= max(lengths));
+    without it the loop stops once every lane is done, checked every
+    WALK_EXIT_EVERY levels. Bounded by max_depth either way."""
+    env = trees.root_env
+    kw = env_kw(cfg)
+    last = lengths.long() - 1
+    n = cfg.max_depth - 1 if levels is None else min(levels, cfg.max_depth) - 1
+    for t in range(max(n, 0)):
+        if levels is None and t % WALK_EXIT_EVERY == 0 and not bool((t < last).any()):
+            break
+        do = t < last
+        env = torch.where(do[:, None], EP.packed_step(env, actions[:, t], **kw), env)
+    return env
+
+
+def expand_children(leaf_env, cfg: TreeConfig):
+    """The 7 child steps of every leaf (the reference `expand_children`),
+    as one packed step of the B x 7 (leaf, action) pairs. leaf_env (B, 44)
+    -> (child env (B, 7, 44), packed obs (B, 7, 20), score (B, 7) int32,
+    end (B, 7) bool)."""
+    B = leaf_env.shape[0]
+    a7 = torch.arange(N_ACTIONS, device=leaf_env.device)
+    ch = EP.packed_step(leaf_env.repeat_interleave(N_ACTIONS, 0), a7.repeat(B),
+                        **env_kw(cfg))
+    return (ch.reshape(B, N_ACTIONS, -1), EP.packed_obs(ch).reshape(B, N_ACTIONS, 20),
+            ch[:, 36].reshape(B, N_ACTIONS), (ch[:, 43] != 0).reshape(B, N_ACTIONS))
+
+
+def headroom(trees: Tree, cfg: TreeConfig):
+    """(B,) True while one more expansion surely fits in both pools."""
+    return (trees.n_nodes + N_ACTIONS <= cfg.max_nodes) & (
+        trees.n_obs + N_ACTIONS <= cfg.max_obs)
+
+
+def children_of(trees: Tree, idx):
+    """(B, 7) int64 child node ids of nodes idx (B,): cbase + action, 0s
+    where the node is unexpanded."""
+    c = trees.cbase[_rows(idx), idx.long()].long()[:, None]
+    return torch.where(c != 0, c + torch.arange(N_ACTIONS, device=c.device), 0)
+
+
+# ---------------------------------------------------------------------------
 # allocation
 # ---------------------------------------------------------------------------
 
@@ -431,8 +493,7 @@ def compute_stats(trees: Tree):
     (`TreeAgent.compute_stats`)."""
     b = _rows(trees.root)[:, None]
     root = trees.root.long()
-    c = trees.cbase[b[:, 0], root].long()[:, None]
-    kids = torch.where(c != 0, c + torch.arange(N_ACTIONS, device=c.device), 0)
+    kids = children_of(trees, trees.root)
     valid = kids != 0
     obs = trees.nstat[b, 1, kids].long()
     visit = torch.where(valid, trees.visits[b, obs], 0.0)

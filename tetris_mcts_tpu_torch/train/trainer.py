@@ -1,5 +1,6 @@
-"""The VV model: net, output bounds, inference and training (counterpart of
-the reference package's `train/trainer.py` `VVModel`).
+"""The VV and VP models: nets, inference, training and checkpoints
+(counterpart of the reference package's `train/trainer.py` `VVModel` and
+`VPModel`).
 
 Holds the VV net and its output bounds (`ubound` = [100, 1000] and
 `lbound` = [0, 0.1] at the start, as the reference sets them), builds the
@@ -24,16 +25,25 @@ indices from `index_source` (`TorchIndexSource`, a torch.Generator on the
 device seeded per session), which a test can replace with one that
 replays the reference's key chain.
 
-Checkpoints: `save` writes `torch.save` of the net's state dict, the Yogi
-state and the bounds (default `DEFAULT_CKPT`); `load` reads it back. A
-checkpoint of the JAX package (a pickle of flax bytes) is converted where
-flax is installed: `params_from_jax` and `opt_state_from_jax` take its
-params and optimizer state as numpy arrays.
+`VPModel` holds the VP net (`models/nets.VPNet`) and trains it with the
+reference's semantics: the smooth-L1 value loss plus the label-smoothed
+policy KL (`models/losses.py`), weighted, with Adam-amsgrad at lr 1e-4
+(`train/optim.AdamAmsgrad`); its session is the same loop
+(`_early_stop_fit`) without the VV model's grad-norm watch and bounds.
+
+Checkpoints: `save` writes `torch.save` of the net's state dict, the
+optimizer state (and the VV bounds) (defaults `DEFAULT_CKPT`,
+`VP_DEFAULT_CKPT`); `load` reads it back, and reads a checkpoint of the
+JAX package too (a pickle of flax msgpack bytes, read without flax by
+`train/flax_msgpack.py`), converted by `params_from_jax` +
+`opt_state_from_jax` (VV) or `vp_params_from_jax` + `vp_opt_state_from_jax`
+(VP). `save` never overwrites a file that is not the port's.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import tempfile
 import zipfile
 
@@ -41,34 +51,62 @@ import numpy as np
 import torch
 
 from tetris_mcts_tpu_torch.models import losses as L
-from tetris_mcts_tpu_torch.models.nets import VVNet, tf32_off
-from tetris_mcts_tpu_torch.train.optim import Yogi
+from tetris_mcts_tpu_torch.models.nets import VPNet, VVNet, tf32_off
+from tetris_mcts_tpu_torch.train import flax_msgpack
+from tetris_mcts_tpu_torch.train.optim import AMS_LR, AdamAmsgrad, Yogi
 
 VARIANCE_BOUND = L.VARIANCE_BOUND  # reference `variance_bound`
 DEFAULT_CKPT = "./checkpoints/model_vv_torch.pt"
+VP_DEFAULT_CKPT = "./checkpoints/model_vp_torch.pt"
+
+
+def _f32(x):
+    return np.array(x, np.float32)  # a writable copy
+
+
+def _conv(sd, p, name):
+    """A flax conv (HWIO kernel) as an nn.Conv2d's weight (OIHW) and bias."""
+    sd[f"{name}.weight"] = torch.from_numpy(
+        _f32(p[name]["kernel"]).transpose(3, 2, 0, 1).copy())
+    sd[f"{name}.bias"] = torch.from_numpy(_f32(p[name]["bias"]))
+
+
+def _dense(sd, p, name, hwc=None):
+    """A flax Dense as an nn.Linear. With hwc = (H, W, C), its input rows
+    follow flax's NHWC flatten (y, x, c) and are permuted to the NCHW
+    flatten (c, y, x) of the port's nets."""
+    k = _f32(p[name]["kernel"])                                 # (in, out)
+    if hwc is not None:
+        H, W, C = hwc
+        k = k.reshape(H, W, C, -1).transpose(2, 0, 1, 3).reshape(H * W * C, -1)
+    sd[f"{name}.weight"] = torch.from_numpy(k.T.copy())
+    sd[f"{name}.bias"] = torch.from_numpy(_f32(p[name]["bias"]))
 
 
 def _state_from_flax(p):
-    """flax VV param tree (numpy) -> VVNet state dict (torch, float32).
-
-    Conv kernels are HWIO in flax and OIHW here. fc1's input rows follow
-    the NHWC flatten (y, x, c) there and the NCHW flatten (c, y, x) here,
-    so they are permuted."""
+    """flax VV param tree (numpy) -> VVNet state dict (torch, float32)."""
     p = p.get("params", p)
-    f32 = lambda x: np.array(x, np.float32)  # a writable copy
     sd = {}
     for i in (1, 2, 3):
-        sd[f"conv{i}.weight"] = torch.from_numpy(
-            f32(p[f"conv{i}"]["kernel"]).transpose(3, 2, 0, 1).copy())
-        sd[f"conv{i}.bias"] = torch.from_numpy(f32(p[f"conv{i}"]["bias"]))
-    k1 = f32(p["fc1"]["kernel"])                               # (y*x*c, out)
-    C = sd["conv3.weight"].shape[0]
-    n_out = k1.shape[1]
-    k1 = k1.reshape(14, 4, C, n_out).transpose(2, 0, 1, 3).reshape(-1, n_out)
-    sd["fc1.weight"] = torch.from_numpy(k1.T.copy())
-    sd["fc1.bias"] = torch.from_numpy(f32(p["fc1"]["bias"]))
-    sd["fc_out.weight"] = torch.from_numpy(f32(p["fc_out"]["kernel"]).T.copy())
-    sd["fc_out.bias"] = torch.from_numpy(f32(p["fc_out"]["bias"]))
+        _conv(sd, p, f"conv{i}")
+    _dense(sd, p, "fc1", (14, 4, sd["conv3.weight"].shape[0]))
+    _dense(sd, p, "fc_out")
+    return sd
+
+
+def _vp_state_from_flax(p):
+    """flax VP param tree (numpy) -> VPNet state dict (torch, float32)."""
+    p = p.get("params", p)
+    sd = {}
+    for i in (1, 2):
+        _conv(sd, p, f"conv{i}")
+        sd[f"norm{i}.weight"] = torch.from_numpy(_f32(p[f"norm{i}"]["scale"]))
+        sd[f"norm{i}.bias"] = torch.from_numpy(_f32(p[f"norm{i}"]["bias"]))
+    hwc = (16, 6, sd["conv2.weight"].shape[0])
+    for name in ("fc_v", "fc_p"):
+        _dense(sd, p, name, hwc)
+    for name in ("value", "policy"):
+        _dense(sd, p, name)
     return sd
 
 
@@ -79,23 +117,88 @@ def params_from_jax(params_np, ubound, lbound):
     return _state_from_flax(params_np), as_t(ubound), as_t(lbound)
 
 
-def opt_state_from_jax(opt_state_np):
-    """The reference's Yogi state (the optax chain's state as numpy arrays,
-    with its `ScaleByAdamState`) -> (mu state dict, nu state dict, count):
-    mu and nu in `VVNet`'s layout, as `params_from_jax` lays out params."""
-    def find(s):
-        if hasattr(s, "mu") and hasattr(s, "nu"):
-            return s
-        for x in s if isinstance(s, (tuple, list)) else ():
-            found = find(x)
-            if found is not None:
-                return found
-        return None
+def vp_params_from_jax(params_np):
+    """flax VP params (nested dict of numpy arrays) -> `VPNet` state dict."""
+    return _vp_state_from_flax(params_np)
 
-    st = find(opt_state_np)
+
+def _find_moments(s, fields):
+    """The optimizer state's moment record: an optax state object with the
+    attributes `fields`, or its flax state-dict form (a dict with those
+    keys), found depth first in the chain's tuples (or "0", "1", ... dicts)."""
+    if isinstance(s, dict):
+        if all(f in s for f in fields):
+            return s
+        subs = list(s.values())
+    elif all(hasattr(s, f) for f in fields):
+        return {f: getattr(s, f) for f in fields + ("count",)}
+    else:
+        subs = list(s) if isinstance(s, (tuple, list)) else []
+    for x in subs:
+        found = _find_moments(x, fields)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(opt_state_np):
+    """The reference's Yogi state (the optax chain's state, or its flax
+    state dict, as numpy arrays) -> (mu state dict, nu state dict, count):
+    mu and nu in `VVNet`'s layout, as `params_from_jax` lays out params."""
+    st = _find_moments(opt_state_np, ("mu", "nu"))
     if st is None:
         raise ValueError("no Yogi moments (mu, nu) in this optimizer state")
-    return _state_from_flax(st.mu), _state_from_flax(st.nu), int(np.asarray(st.count))
+    return _state_from_flax(st["mu"]), _state_from_flax(st["nu"]), int(np.asarray(st["count"]))
+
+
+def vp_opt_state_from_jax(opt_state_np):
+    """The reference's Adam-amsgrad state (`ScaleByAmsgradState`, or its
+    flax state dict) -> (mu, nu, nu_max state dicts in `VPNet`'s layout,
+    count)."""
+    st = _find_moments(opt_state_np, ("mu", "nu", "nu_max"))
+    if st is None:
+        raise ValueError("no Adam-amsgrad moments (mu, nu, nu_max) in this optimizer state")
+    return (*(_vp_state_from_flax(st[k]) for k in ("mu", "nu", "nu_max")),
+            int(np.asarray(st["count"])))
+
+
+def _read_jax(path: str, kind: str):
+    """The JAX package's checkpoint at `path` (flax_msgpack), checked to be
+    of the `kind` net ("vv": conv3 and fc1; "vp": the norms and heads)."""
+    try:
+        blob = flax_msgpack.read_jax_checkpoint(path)
+    except (ValueError, pickle.UnpicklingError, EOFError) as e:
+        raise ValueError(f"{path} is neither a checkpoint of the port (torch.save) nor "
+                         f"one of the JAX package ({e})") from e
+    p = blob["params"].get("params", blob["params"])
+    want = {"vv": ("conv3", "fc1", "fc_out"), "vp": ("norm1", "fc_v", "policy")}[kind]
+    if not all(k in p for k in want):
+        raise ValueError(f"{path} is a JAX checkpoint of another net (params "
+                         f"{sorted(p)}), not of the {kind} net")
+    return blob
+
+
+def _save_torch(path: str, blob: dict, verbose: bool):
+    """torch.save of blob to path through a temporary file and a rename;
+    refuses to overwrite a file that is not a checkpoint of the port."""
+    if os.path.isfile(path) and not zipfile.is_zipfile(path):
+        raise ValueError(f"refusing to overwrite {path}: it is not a checkpoint "
+                         "of the port (torch.save)")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=os.path.basename(path), suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(blob, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    if verbose:
+        print("Saving model...", flush=True)
 
 
 class TorchIndexSource:
@@ -126,6 +229,107 @@ def _boards(x, device):
     if x.dim() == 3:
         x = x[:, None]
     return x.float()
+
+
+def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_fraction,
+                    validation_rows, early_stopping, early_stopping_patience,
+                    early_stopping_threshold, shuffle, min_iters, max_iters, log,
+                    grad_norm_warn=None, dump_dir="./data"):
+    """The training session both models run (the reference `train_data`
+    loop): an optional shuffle (`model._rng`), a validation tail of
+    `validation_rows` rows or `validation_fraction` of them, minibatches
+    drawn with replacement by `model.index_source` (seeded from
+    `model._rng`), `step(train, idx) -> (loss, per-sample losses, grad
+    norm)` a minibatch, a validation loss every `iters_per_val` steps
+    (`model.eval_loss`), early stopping on it with the best params restored.
+
+    cols: equal-length device tensors, states first. With `grad_norm_warn`
+    (the VV model's session) the grad norm is watched too: windows with a
+    step above it dump that minibatch (`model._dump_grad_batch`) into
+    `dump_dir`, a window of exactly zero gradients ends the session, and the
+    norm is logged and kept as the history's fifth column. Without it (the
+    VP model's, as the reference's shared `_early_stop_fit`), the history
+    is (iteration, train loss, val loss, val std) a window.
+
+    A step reads nothing back: a window keeps its losses, grad norms and
+    minibatch indices on the device and reads them once, at its end."""
+    watch = grad_norm_warn is not None
+    n = cols[0].shape[0]
+    # validation_rows pins the tail exactly
+    n_val = (validation_rows if validation_rows is not None
+             else max(int(n * validation_fraction), 1))
+    if shuffle:
+        perm = torch.as_tensor(model._rng.permutation(n), device=cols[0].device)
+        cols = tuple(d[perm] for d in cols)
+    train = tuple(d[:-n_val] for d in cols)
+    val = tuple(d[-n_val:] for d in cols)
+    n_train = n - n_val
+    log(f"Training data size: {n_train}    Validation data size: {n_val}")
+
+    fails = 0
+    best_val = float("inf")
+    best = model._params_copy()
+    model.index_source.start(model._rng.randint(2**31))
+    history = []
+    it = 0
+    while it < max_iters:
+        k = min(iters_per_val, max_iters - it)
+        idxs, losses, gnorms = [], [], []
+        for _ in range(k):
+            idx = model.index_source(n_train, batch_size)
+            loss, _, gnorm = step(train, idx)
+            idxs.append(idx)
+            losses.append(loss)
+            gnorms.append(gnorm)
+        vmean, vstd = model.eval_loss(val)
+        # the window's one read from the device
+        host = torch.cat([torch.stack(losses), torch.stack(gnorms),
+                          torch.stack([vmean, vstd])]).cpu().numpy()
+        losses_h, gnorms_h = host[:k], host[k:2 * k]
+        it += k
+        loss_avg = float(losses_h.mean())
+        gnorm_avg = float(gnorms_h.mean())
+
+        if watch:
+            for j in np.nonzero(gnorms_h > grad_norm_warn)[0][:4]:
+                log(f"Large gradient ({float(gnorms_h[j])}) detected")
+                model._dump_grad_batch(tuple(d[idxs[j]] for d in train), dump_dir)
+
+        vmean = float(host[2 * k])
+        vstd = float(host[2 * k + 1]) / n_val**0.5
+        suffix = ""
+        stop = False
+        if early_stopping:
+            if vmean - best_val < vstd * early_stopping_threshold:
+                fails = 0
+                if vmean < best_val:
+                    suffix = "*"
+                    best_val = vmean
+                    best = model._params_copy()
+            else:
+                fails += 1
+                stop = fails >= early_stopping_patience and it >= min_iters
+        line = (f"Iteration:{it:7d}  training loss:{loss_avg:6.4f}  "
+                f"validation loss:{vmean:6.4f}±{vstd:6.4f}")
+        if watch:
+            log(f"{line}  gradient norm:{gnorm_avg:6.3f}    {suffix}")
+            history.append((it, loss_avg, vmean, vstd, gnorm_avg))
+        else:
+            log(line)
+            history.append((it, loss_avg, vmean, vstd))
+        if stop:
+            break
+        # A window of exactly zero gradients: the bounded sigmoid heads
+        # are saturated on every sampled row, the loss is constant and
+        # the session would spin to max_iters. End it.
+        if watch and gnorm_avg == 0.0:
+            log(f"Zero-gradient window at iteration {it} — output "
+                "heads saturated on this data; ending session")
+            break
+
+    if early_stopping:
+        model.net.load_state_dict(best)
+    return history
 
 
 class VVModel:
@@ -257,14 +461,6 @@ class VVModel:
         states = _boards(data[0], dev)
         value, variance, weight = (_col(x, dev) for x in data[1:4])
         weight = weight / weight.mean() if self.weighted else torch.ones_like(weight)
-        n = states.shape[0]
-        # validation_rows pins the tail exactly
-        n_val = (validation_rows if validation_rows is not None
-                 else max(int(n * validation_fraction), 1))
-        cols = (states, value, variance, weight)
-        if shuffle:
-            perm = torch.as_tensor(self._rng.permutation(n), device=dev)
-            cols = tuple(d[perm] for d in cols)
 
         # Rescale the output bounds to the data's max. After a `load` the
         # rescale is monotone: it never shrinks below the bounds the net was
@@ -277,71 +473,16 @@ class VVModel:
             self._ubound_floor = torch.stack([vmax, varmax])
         self.ubound = torch.stack([vmax, varmax]).float()
 
-        train = tuple(d[:-n_val] for d in cols)
-        val = tuple(d[-n_val:] for d in cols)
-        n_train = n - n_val
-        log(f"Training data size: {n_train}    Validation data size: {n_val}")
-
         lam = self.ewc_lambda if self.ewc else 0.0
-        fails = 0
-        best_val = float("inf")
-        best = self._params_copy()
-        self.index_source.start(self._rng.randint(2**31))
-        history = []
-        it = 0
-        while it < max_iters:
-            k = min(iters_per_val, max_iters - it)
-            idxs, losses, gnorms = [], [], []
-            for _ in range(k):
-                idx = self.index_source(n_train, batch_size)
-                loss, _, gnorm = self.train_step(train, idx, lam)
-                idxs.append(idx)
-                losses.append(loss)
-                gnorms.append(gnorm)
-            vmean, vstd = self.eval_loss(val)
-            # the window's one read from the device
-            host = torch.cat([torch.stack(losses), torch.stack(gnorms),
-                              torch.stack([vmean, vstd])]).cpu().numpy()
-            losses_h, gnorms_h = host[:k], host[k:2 * k]
-            it += k
-            loss_avg = float(losses_h.mean())
-            gnorm_avg = float(gnorms_h.mean())
-
-            for j in np.nonzero(gnorms_h > grad_norm_warn)[0][:4]:  # watchdog
-                log(f"Large gradient ({float(gnorms_h[j])}) detected")
-                self._dump_grad_batch(tuple(d[idxs[j]] for d in train), dump_dir)
-
-            vmean = float(host[2 * k])
-            vstd = float(host[2 * k + 1]) / n_val**0.5
-            suffix = ""
-            stop = False
-            if early_stopping:
-                if vmean - best_val < vstd * early_stopping_threshold:
-                    fails = 0
-                    if vmean < best_val:
-                        suffix = "*"
-                        best_val = vmean
-                        best = self._params_copy()
-                else:
-                    fails += 1
-                    stop = fails >= early_stopping_patience and it >= min_iters
-            log(f"Iteration:{it:7d}  training loss:{loss_avg:6.4f}  "
-                f"validation loss:{vmean:6.4f}±{vstd:6.4f}  "
-                f"gradient norm:{gnorm_avg:6.3f}    {suffix}")
-            history.append((it, loss_avg, vmean, vstd, gnorm_avg))
-            if stop:
-                break
-            # A window of exactly zero gradients: the bounded sigmoid heads
-            # are saturated on every sampled row, the loss is constant and
-            # the session would spin to max_iters. End it.
-            if gnorm_avg == 0.0:
-                log(f"Zero-gradient window at iteration {it} — output "
-                    "heads saturated on this data; ending session")
-                break
-
-        if early_stopping:
-            self.net.load_state_dict(best)
-        return history
+        return _early_stop_fit(
+            self, (states, value, variance, weight),
+            lambda train, idx: self.train_step(train, idx, lam),
+            batch_size=batch_size, iters_per_val=iters_per_val,
+            validation_fraction=validation_fraction, validation_rows=validation_rows,
+            early_stopping=early_stopping, early_stopping_patience=early_stopping_patience,
+            early_stopping_threshold=early_stopping_threshold, shuffle=shuffle,
+            min_iters=min_iters, max_iters=max_iters, log=log,
+            grad_norm_warn=grad_norm_warn, dump_dir=dump_dir)
 
     def compute_fisher(self, data):
         """Empirical Fisher (the mean squared per-example gradient) of the
@@ -367,49 +508,30 @@ class VVModel:
         """Write the net's params, the Yogi state and the bounds to `path`
         (`torch.save`; written to a temporary file, then renamed). Refuses
         to overwrite a file that is not a checkpoint of the port."""
-        path = path or self.checkpoint_path
-        if os.path.isfile(path) and not zipfile.is_zipfile(path):
-            raise ValueError(f"refusing to overwrite {path}: it is not a checkpoint "
-                             "of the port (torch.save)")
         mu, nu, count = self.opt.state()
         cpu = lambda xs: {n: x.detach().cpu() for n, x in zip(self.names, xs)}
-        blob = {"net": cpu(self.net.parameters()), "yogi_mu": cpu(mu),
-                "yogi_nu": cpu(nu), "yogi_count": count,
-                "ubound": self.ubound.cpu(), "lbound": self.lbound.cpu()}
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
-                                   prefix=os.path.basename(path), suffix=".tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(blob, f)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, path)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
-        if verbose:
-            print("Saving model...", flush=True)
+        _save_torch(path or self.checkpoint_path,
+                    {"net": cpu(self.net.parameters()), "yogi_mu": cpu(mu),
+                     "yogi_nu": cpu(nu), "yogi_count": count,
+                     "ubound": self.ubound.cpu(), "lbound": self.lbound.cpu()}, verbose)
 
     def load(self, path: str | None = None):
-        """Read a checkpoint written by `save`. The loaded bounds become the
-        floor of later rescales and the params the EWC anchor p0. Returns
-        False when the file does not exist."""
+        """Read a checkpoint written by `save`, or one of the JAX package
+        (its params, Yogi state and bounds, converted). The loaded bounds
+        become the floor of later rescales and the params the EWC anchor
+        p0. Returns False when the file does not exist."""
         path = path or self.checkpoint_path
         if not os.path.isfile(path):
             print("Checkpoint not found, using default model", flush=True)
             return False
         if not zipfile.is_zipfile(path):
-            raise ValueError(
-                f"{path} is not a checkpoint of the port. A checkpoint of the JAX "
-                "package (a pickle of flax bytes) is converted where flax is "
-                "installed: params_from_jax and opt_state_from_jax "
-                "(tetris_mcts_tpu_torch/train/trainer.py) on its params and "
-                "optimizer state, then load_state, load_opt_state and save")
-        blob = torch.load(path, map_location=self.device, weights_only=True)
-        self.load_state(blob["net"], blob["ubound"], blob["lbound"])
-        self.load_opt_state(blob["yogi_mu"], blob["yogi_nu"], blob["yogi_count"])
+            blob = _read_jax(path, "vv")
+            self.load_state(*params_from_jax(blob["params"], blob["ubound"], blob["lbound"]))
+            self.load_opt_state(*opt_state_from_jax(blob["opt_state"]))
+        else:
+            blob = torch.load(path, map_location=self.device, weights_only=True)
+            self.load_state(blob["net"], blob["ubound"], blob["lbound"])
+            self.load_opt_state(blob["yogi_mu"], blob["yogi_nu"], blob["yogi_count"])
         self._ubound_floor = self.ubound.clone()
         return True
 
@@ -424,3 +546,135 @@ class VVModel:
                  states=host(states.permute(0, 2, 3, 1)), value=host(value),
                  variance=host(variance), weight=host(weight),
                  pred_value=host(v), pred_variance=host(var))
+
+
+class VPModel:
+    """VP net on `device`, with Adam-amsgrad training (the reference
+    `VPModel`): the per-sample loss is weight * (smooth_l1(v, value) +
+    kl_div_policy(logits, policy)); `weighted` sessions weight by the
+    weight column normalised to mean 1, else by ones."""
+
+    def __init__(self, seed: int = 0, device="cuda", checkpoint_path: str = VP_DEFAULT_CKPT,
+                 index_source=None, lr: float = AMS_LR, weighted: bool = True):
+        self.device = torch.device(device)
+        self.net = VPNet(seed=seed).to(self.device)
+        self.weighted = weighted
+        self.checkpoint_path = checkpoint_path
+        self.names = [n for n, _ in self.net.named_parameters()]
+        self.opt = AdamAmsgrad(self.net.parameters(), lr=lr)
+        self._rng = np.random.RandomState(seed + 1)
+        self.index_source = index_source or TorchIndexSource(self.device)
+
+    def _params_copy(self):
+        return {n: p.detach().clone() for n, p in self.net.named_parameters()}
+
+    def load_state(self, state_dict):
+        self.net.load_state_dict(state_dict)
+
+    def load_opt_state(self, mu, nu, nu_max, count: int):
+        """Set the optimizer state from state dicts of mu, nu and nu_max."""
+        self.opt.load(*([d[n] for n in self.names] for d in (mu, nu, nu_max)), count)
+
+    # ---------------------------------------------------------- inference
+    def apply_fn(self, compute_dtype=None):
+        """imgs (n, 1, 20, 10) -> (v (n,), policy logits (n, 7)).
+        `compute_dtype` (torch.bfloat16 for --bf16) applies to this closure
+        only."""
+
+        @torch.no_grad()
+        def f(imgs):
+            v, logits = self.net(imgs.to(self.device), compute_dtype)
+            return v[:, 0], logits
+
+        return f
+
+    def inference(self, boards):
+        """boards (N, 20, 10) or (N, 1, 20, 10) -> (value (N, 1), policy
+        (N, 7)) numpy arrays; the policy is the logits' softmax."""
+        v, logits = self.apply_fn()(_boards(boards, self.device))
+        return v.cpu().numpy()[:, None], torch.softmax(logits, -1).cpu().numpy()
+
+    # ----------------------------------------------------------- training
+    def per_sample_loss(self, states, value, policy, weight):
+        v, logits = self.net(states)
+        return weight * (L.smooth_l1(v[:, 0], value) + L.kl_div_policy(logits, policy))
+
+    def loss_and_grads(self, batch):
+        """(loss, per-sample losses, grads in `names` order) of one batch
+        (states, value, policy, weight)."""
+        params = list(self.net.parameters())
+        with tf32_off():
+            per = self.per_sample_loss(*batch)
+            loss = per.mean()
+            grads = torch.autograd.grad(loss, params)
+        return loss.detach(), per.detach(), grads
+
+    def train_step(self, data, idx):
+        """One Adam-amsgrad step on the rows `idx` of data (states, value,
+        policy, weight). Returns (loss, per-sample losses, global grad
+        norm) on the device."""
+        loss, per, grads = self.loss_and_grads(tuple(d[idx] for d in data))
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self.opt.step(grads)
+        return loss, per, gnorm
+
+    @torch.no_grad()
+    def eval_loss(self, data):
+        """(mean, std) of the per-sample loss over data, device scalars."""
+        with tf32_off():
+            per = self.per_sample_loss(*data)
+        return per.mean(), per.std(correction=0)
+
+    def train_data(self, data, batch_size: int = 128, iters_per_val: int = 500,
+                   validation_fraction: float = 0.1, validation_rows: int | None = None,
+                   early_stopping: bool = True, early_stopping_patience: int = 10,
+                   early_stopping_threshold: float = 1.0, shuffle: bool = False,
+                   min_iters: int = 0, max_iters: int = 100000, log=print):
+        """One training session over data = [states, values, policy (7),
+        weights]. Returns the history, a list of (iteration, train loss,
+        val loss, val std) a window."""
+        dev = self.device
+        weight = _col(data[3], dev)
+        weight = weight / weight.mean() if self.weighted else torch.ones_like(weight)
+        cols = (_boards(data[0], dev), _col(data[1], dev),
+                torch.as_tensor(data[2], device=dev).float().reshape(-1, 7), weight)
+        return _early_stop_fit(
+            self, cols, self.train_step, batch_size=batch_size,
+            iters_per_val=iters_per_val, validation_fraction=validation_fraction,
+            validation_rows=validation_rows, early_stopping=early_stopping,
+            early_stopping_patience=early_stopping_patience,
+            early_stopping_threshold=early_stopping_threshold, shuffle=shuffle,
+            min_iters=min_iters, max_iters=max_iters, log=log)
+
+    # --------------------------------------------------------- persistence
+    def save(self, path: str | None = None, verbose: bool = False):
+        """Write the net's params and the optimizer state to `path`
+        (`torch.save`, through a temporary file). Refuses to overwrite a
+        file that is not a checkpoint of the port."""
+        mu, nu, nu_max, count = self.opt.state()
+        cpu = lambda xs: {n: x.detach().cpu() for n, x in zip(self.names, xs)}
+        _save_torch(path or self.checkpoint_path,
+                    {"net": cpu(self.net.parameters()), "ams_mu": cpu(mu),
+                     "ams_nu": cpu(nu), "ams_nu_max": cpu(nu_max), "ams_count": count},
+                    verbose)
+
+    def load(self, path: str | None = None):
+        """Read a checkpoint written by `save`, or a VP checkpoint of the
+        JAX package (converted). Returns False when the file does not
+        exist."""
+        path = path or self.checkpoint_path
+        if not os.path.isfile(path):
+            print("Checkpoint not found, using default model", flush=True)
+            return False
+        if not zipfile.is_zipfile(path):
+            blob = _read_jax(path, "vp")
+            self.load_state(vp_params_from_jax(blob["params"]))
+            self.load_opt_state(*vp_opt_state_from_jax(blob["opt_state"]))
+        else:
+            blob = torch.load(path, map_location=self.device, weights_only=True)
+            if "ams_mu" not in blob:
+                raise ValueError(f"{path} is a checkpoint of the port's VV net, not of the VP net")
+            self.load_state(blob["net"])
+            self.load_opt_state(blob["ams_mu"], blob["ams_nu"], blob["ams_nu_max"],
+                                blob["ams_count"])
+        return True
