@@ -71,7 +71,29 @@ of the JAX package. Phases, each printing its elapsed seconds:
    2000 steps) on those rows writes a checkpoint and `loss0.rec`; `play
    --benchmark --load_model` for 5 moves (500 launches of each walk) must
    give outputs on fixed boards that differ from the seed net's; then
-   `cycle --dry_run --iters 2` prints its plan.
+   `cycle --dry_run --iters 2` prints its plan;
+12-13. vp, vp online: ApproxPolicyIter frozen (3 moves; only the insert
+   kernel launches) and online until a session (train_rows 500,
+   train_max_iters 500), a VP train step on the card against the CPU;
+14. playouts: HybridSim at 4 sims for 2 moves;
+15. trained: 5 lp moves through `play --load_model` on the repo's JAX
+   checkpoint, the loaded net on the card against the CPU;
+16. dist: DistValueSim frozen at the CLI's width (50 atoms on [0, 1000],
+   low 5) for 3 moves after a warm-up: only the insert kernel launches,
+   300 times; every visited obs's distribution sums to 1; two profiled
+   moves of a 4-sim twin, scaled;
+17. dist online: DistValueSim with training (cuts: train_rows 500,
+   train_max_iters 500) until a session and 2 moves more: the stored
+   target rows sum to 1 within 1e-3; a DistModel train step's device time
+   and launches, and the step on the card against the CPU (TF32 on around
+   it);
+18. surface: at the CLI's width with 20 sims (cut from 100), 5 lp moves
+   with both kernels, with `--select_kernel 0` and with `--insert_kernel
+   0` (each bit-equal to the kernels' run in actions, every tree array and
+   a select walk's traces), and under `--policy max` (only the insert
+   kernel launches). The small phase also holds the dist move, an lp max
+   move (vmax too) and `backup_exp_moving` / `backup_mixture` on the card
+   against the CPU.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the `kernels` line gives each kernel's launches summed over the
@@ -108,6 +130,13 @@ VP_ONLINE_ITERS = 500    # ... and of --train_max_iters (CLI: 50000)
 VP_ONLINE_MOVE_CAP = 30
 TRAINED_CKPT = "checkpoints/model_vv.msgpack"  # the JAX package's trained VV net
 PLAYOUT_MOVES, PLAYOUT_SIMS = 2, 4
+DIST_MOVES = 3             # the dist phase's moves at the CLI width
+DIST_PROFILE_SIMS = 4      # the dist profile's cut of the sims (as vp's)
+DIST_ONLINE_ROWS = 500     # the dist online phase's cut of --train_rows (CLI: 5000)
+DIST_ONLINE_ITERS = 500    # ... and of --train_max_iters (CLI: 50000)
+DIST_ONLINE_MOVE_CAP = 30
+DIST_ONLINE_AFTER = 1      # moves after the first session, on the trained net (~11 s each)
+SURFACE_MOVES, SURFACE_SIMS = 5, 20  # the surface phase's lp runs (sims cut from 100)
 # a stand-in for the VP net: logits s x STUB_LOGIT from the board's cell sum s
 STUB_LOGIT = (0.3, -0.2, 0.11, 0.05, -0.07, 0.17, -0.02)
 # each path's kernel launches, recorded as the path runs (the kernels line)
@@ -260,15 +289,16 @@ def stub_vp(x):
     return 0.5 * s, s[:, None] * torch.tensor(STUB_LOGIT, device=x.device)
 
 
-def phase_small(torch, mcts, T, evaluator):
+def phase_small(torch, mcts, T, evaluator, policy="clt"):
     """The move program on the card against the same program on the CPU,
     with the stub net (lp, leaf), fixed playout draws (rollout), or the
-    stub VP net and fixed gumbels (the policy playouts, 4 sims)."""
+    stub VP net and fixed gumbels (the policy playouts, 4 sims); under
+    `policy` (max: the plain select and backups, vmax compared too)."""
     import numpy as np
 
     playout = evaluator in mcts.POLICY_PLAYOUTS
     tcfg = T.TreeConfig(max_nodes=256, max_obs=256, table_size=512, max_depth=16,
-                        low=5 if evaluator == "rollout" else 1)
+                        low=5 if evaluator == "rollout" else 1, policy=policy)
     scfg = mcts.SearchConfig(tree=tcfg, sims=4 if playout else 8, evaluator=evaluator,
                              rollout_cap=64)
     rng = np.random.RandomState(0)
@@ -303,6 +333,11 @@ def phase_small(torch, mcts, T, evaluator):
         results[dev] = (torch.stack(out), trees, envs)
     ga, gt, ge = results["cuda"]
     ca, ct, ce = results["cpu"]
+    if policy != "clt":
+        evaluator = f"{evaluator}, {policy}"
+        if not float(ct.vmax.max()) > 0:
+            raise AssertionError(f"small[{evaluator}]: no vmax was backed up")
+        close(f"small[{evaluator}] vmax", gt.vmax, ct.vmax, False)
     if playout and float(gt.vars_.max()) < 100.0:
         raise AssertionError(f"small[{evaluator}]: no playout variance was backed up")
     close(f"small[{evaluator}] actions", ga, ca, True)
@@ -312,6 +347,104 @@ def phase_small(torch, mcts, T, evaluator):
         close(f"small[{evaluator}] {f}", getattr(gt, f), getattr(ct, f), True)
     return max(close(f"small[{evaluator}] values", gt.values, ct.values, False),
                close(f"small[{evaluator}] vars", gt.vars_, ct.vars_, False))
+
+
+def dist_stub(x):
+    """Deterministic stand-in for the distributional net: 16 bins weighted
+    (s + 3 b) mod 5 + 1 from the board's cell sum s, normalised."""
+    import torch
+
+    w = torch.remainder(x.sum(dim=(1, 2, 3))[:, None]
+                        + 3 * torch.arange(16, device=x.device), 5.0) + 1.0
+    return w / w.sum(1, keepdim=True)
+
+
+def phase_small_dist(torch, mcts, T):
+    """The DistValueSim move program on the card (insert kernel) against the
+    CPU, with the stub distributional net and fixed gumbels, 4 moves at B=4
+    (pools of 128, so a harvest is stored): actions, env states, the trees'
+    integer arrays, visits and the ring's boards and weights equal; values
+    and m2 within rtol 1e-6 / atol 1e-5, the distributions and the ring's
+    target rows within rtol 1e-6 / atol 1e-6."""
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.search import distributional as DD
+
+    scfg = mcts.SearchConfig(tree=T.TreeConfig(max_nodes=128, max_obs=128, table_size=256,
+                                               max_depth=16, low=5), sims=8)
+    dcfg = DD.DistConfig(atoms=16, vmax=200.0)
+    rng = np.random.RandomState(2)
+    planes = torch.as_tensor(-np.log(rng.exponential(size=(4 * scfg.sims, 4, 16, 7))),
+                             dtype=torch.float32)
+
+    class Gumbels:
+        def __init__(self, dev):
+            self.feed, self.dev = iter(planes), dev
+
+        def level_gumbels(self, B, D):
+            return next(self.feed).to(self.dev)
+
+    results = {}
+    for dev in ("cuda", "cpu"):
+        move = DD.make_dist_move_fn(dist_stub, scfg, dcfg, Gumbels(dev), min_visits_store=1)
+        dts, envs = DD.init_dist_batch(7, 4, scfg, dcfg, device=dev)
+        rep = DD.init_dist_replay(256, 16, dev)
+        out = []
+        for _ in range(4):
+            envs, st = move(dts, envs, rep)
+            out.append(torch.stack([st.action.float(), *st.probs.T]))
+        results[dev] = (torch.stack(out), dts, envs, rep)
+    gm, gt, ge, grep = results["cuda"]
+    cm, ct, ce, crep = results["cpu"]
+    close("small[dist] actions and visit policies", gm, cm, True)
+    close("small[dist] envs", ge, ce, True)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits",
+              "tbl_h1", "tbl_h2", "tbl_obs", "root"):
+        close(f"small[dist] {f}", getattr(gt.base, f), getattr(ct.base, f), True)
+    if int(grep.total) == 0 or int(grep.total) != int(crep.total):
+        raise AssertionError("small[dist]: nothing was stored, or the rings' counts differ")
+    gb, gd, gw = grep.rows()
+    cb, cd, cw = crep.rows()
+    close("small[dist] ring boards", gb, cb, True)
+    close("small[dist] ring weights", gw, cw, True)
+    return max(close("small[dist] values", gt.base.values, ct.base.values, False),
+               close("small[dist] m2", gt.obs_m2, ct.obs_m2, False),
+               close("small[dist] distributions", gt.obs_dist, ct.obs_dist, False, 1e-6, 1e-6),
+               close("small[dist] ring targets", gd, cd, False, 1e-6, 1e-6))
+
+
+def phase_small_backups(torch, mcts, T):
+    """The alternative backups (`tree.backup_exp_moving`, `backup_mixture`,
+    plain torch on either device) on the card against the CPU, from grown
+    lp trees of B=4: visits equal, values and vars within rtol 1e-6 / atol
+    1e-5."""
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.ops import tree_walk
+
+    tcfg = T.TreeConfig(max_nodes=256, max_obs=256, table_size=512, max_depth=16)
+    scfg = mcts.SearchConfig(tree=tcfg, sims=8)
+    move = mcts.make_move_fn(mcts.nn_child_evaluator(stub_evaluator), scfg,
+                             mcts.TorchPlanes(3, "cpu"))
+    trees, envs = mcts.init_batch(9, 4, scfg, device="cpu")
+    for _ in range(2):
+        envs, _ = move(trees, envs)
+    traces, lengths = tree_walk.select_walk_plain(trees, *mcts.TorchPlanes(4, "cpu")(4, 16),
+                                                  tcfg)[:2]
+    rng = np.random.RandomState(5)
+    v0 = torch.as_tensor(rng.uniform(0, 60, 4), dtype=torch.float32)
+    var0 = torch.as_tensor(rng.uniform(0.5, 30, 4), dtype=torch.float32)
+    err = 0.0
+    for kind in ("exp_moving", "mixture"):
+        fn = getattr(T, f"backup_{kind}")
+        tc = trees.clone()
+        tg = T.Tree(**{f: getattr(trees, f).cuda() for f in trees.__dataclass_fields__})
+        fn(tc, traces, lengths, v0, var0, tcfg)
+        fn(tg, traces.cuda(), lengths.cuda(), v0.cuda(), var0.cuda(), tcfg)
+        close(f"small[backup_{kind}] visits", tg.visits, tc.visits, True)
+        err = max(err, close(f"small[backup_{kind}] values", tg.values, tc.values, False),
+                  close(f"small[backup_{kind}] vars", tg.vars_, tc.vars_, False))
+    return err
 
 
 def phase_net(torch):
@@ -495,14 +628,14 @@ def check_launches(path, got, want):
                                  f"{want.get(name, 0)}")
 
 
-def drive(torch, cfg, moves, log, vp=False):
-    """SelfPlayDriver (VPSelfPlayDriver with vp=True) for cfg on the card:
-    one warm-up move, then `moves` moves with the launch counts set to 0
-    just before and read just after. Returns (driver, wall seconds of the
-    moves, launches)."""
-    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver, VPSelfPlayDriver
+def drive(torch, cfg, moves, log, cls=None):
+    """The driver `cls` (default SelfPlayDriver) for cfg on the card: one
+    warm-up move, then `moves` moves with the launch counts set to 0 just
+    before and read just after. Returns (driver, wall seconds of the moves,
+    launches)."""
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
 
-    driver = (VPSelfPlayDriver if vp else SelfPlayDriver)(cfg, device="cuda", log=log)
+    driver = (cls or SelfPlayDriver)(cfg, device="cuda", log=log)
     driver.step()  # warm-up move: cuDNN autotune, allocator
     torch.cuda.synchronize()
     reset_launches()
@@ -515,9 +648,10 @@ def drive(torch, cfg, moves, log, vp=False):
     for name, x in st._asdict().items():
         if x.is_floating_point() and not bool(torch.isfinite(x[x > -torch.inf]).all()):
             raise AssertionError(f"{cfg.evaluator} path: non-finite {name}")
-    if vp:
+    if not hasattr(st, "child_stats"):  # the VP and distributional moves
         if not bool(torch.allclose(st.probs.sum(1), torch.ones_like(st.probs[:, 0]))):
-            raise AssertionError("vp path: a root policy that is not a distribution")
+            raise AssertionError(f"{cfg.evaluator} path: a root policy that is not a "
+                                 "distribution")
     elif not bool((st.child_stats[:, 0].sum(1) > 0).all()):
         raise AssertionError(f"{cfg.evaluator} path: a root without visits")
     return driver, wall, launches
@@ -593,6 +727,9 @@ def main() -> int:
     t = time.perf_counter()
     small_err = {ev: phase_small(torch, mcts, T, ev) for ev in mcts.EVALUATORS}
     small_err["vp"], vp_levels = phase_small_vp(torch, mcts, T)
+    small_err["lp, max"] = phase_small(torch, mcts, T, "lp", policy="max")
+    small_err["dist"] = phase_small_dist(torch, mcts, T)
+    small_err["backup_exp_moving, backup_mixture"] = phase_small_backups(torch, mcts, T)
     net_err = phase_net(torch)
     vp_net_err = phase_net_vp(torch)
     say(f"phase small: 3 moves x 8 sims (4 for the playouts) at B=4 equal on cuda and cpu "
@@ -889,6 +1026,13 @@ def main() -> int:
 
     # ---- 15. lp moves with the repo's trained VV net of the JAX package ---------
     phase_trained(torch, smi)
+
+    # ---- 16-17. DistValueSim, frozen and online ---------------------------------
+    phase_dist(torch, smi)
+    phase_dist_online(torch, smi)
+
+    # ---- 18. the VV surface: --policy max, --select_kernel 0, --insert_kernel 0 --
+    phase_surface(torch, smi)
 
     def by_path(name):
         return {p: c[name] for p, c in PATH_LAUNCHES.items() if c.get(name)}
@@ -1329,11 +1473,11 @@ def phase_vp(torch, smi):
     """ApproxPolicyIter with a frozen net at the CLI's width: the insert
     walk launches moves x sims times, no other walk launches; then two
     profiled moves."""
-    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, VPSelfPlayDriver
 
     t = time.perf_counter()
     cfg = SelfPlayConfig(benchmark=True, evaluator="vp")
-    driver, wall, launches = drive(torch, cfg, VP_MOVES, lambda s: None, vp=True)
+    driver, wall, launches = drive(torch, cfg, VP_MOVES, lambda s: None, VPSelfPlayDriver)
     record("vp", launches)
     check_launches("vp path", launches, {"insert7_walk": VP_MOVES * cfg.sims})
     levels = driver._move.levels
@@ -1343,8 +1487,6 @@ def phase_vp(torch, smi):
         f"select levels a sim in the last move: mean {sum(levels) / len(levels):.2f}, max "
         f"{max(levels)}; mean nodes {driver.trees.n_nodes.float().mean().item():.0f}")
     say(f"phase vp took {time.perf_counter() - t:.1f}s")
-    from tetris_mcts_tpu_torch.runtime.selfplay import VPSelfPlayDriver
-
     twin = VPSelfPlayDriver(cfg._replace(sims=VP_PROFILE_SIMS), device="cuda",
                             log=lambda s: None)
     twin.step()  # warm-up
@@ -1529,6 +1671,225 @@ def phase_trained(torch, smi):
         f"max abs err {err:.3e}; its outputs differ from the seed net's by up to "
         f"{change:.3f}; score of game 0 after 5 moves {int(driver.last_stats.score[0])} "
         f"({smi}); in {time.perf_counter() - t:.1f}s")
+
+
+def phase_dist(torch, smi):
+    """DistValueSim with a frozen net at the CLI's width (atoms 50, vmax
+    1000, low 5): the insert walk launches moves x sims times, no other walk
+    launches; then two profiled moves of a DIST_PROFILE_SIMS-sim twin,
+    scaled to the run's sims."""
+    from tetris_mcts_tpu_torch.runtime.selfplay import DistSelfPlayDriver, SelfPlayConfig
+
+    t = time.perf_counter()
+    cfg = SelfPlayConfig(benchmark=True, evaluator="dist", low=5)
+    driver, wall, launches = drive(torch, cfg, DIST_MOVES, lambda s: None, DistSelfPlayDriver)
+    record("dist", launches)
+    check_launches("dist path", launches, {"insert7_walk": DIST_MOVES * cfg.sims})
+    levels = driver._move.levels
+    dts = driver.dtrees
+    mass = dts.obs_dist.sum(1)
+    used = dts.base.visits > 0
+    if not bool(torch.allclose(mass[used], torch.ones_like(mass[used]), atol=1e-4)):
+        raise AssertionError("dist path: a visited obs whose distribution does not sum to 1")
+    say(f"phase dist (DistValueSim, frozen): {DIST_MOVES} moves x {cfg.sims} sims at "
+        f"B={cfg.batch}, {driver.dcfg.atoms} atoms on [0, {driver.dcfg.vmax:g}], in "
+        f"{wall:.2f}s: {wall / DIST_MOVES * 1e3:.1f} ms wall a move, "
+        f"{DIST_MOVES * cfg.batch * cfg.sims / wall:.1f} sims/s ({smi}); launches {launches}; "
+        f"select levels a sim in the last move: mean {sum(levels) / len(levels):.2f}, max "
+        f"{max(levels)}; mean nodes {dts.base.n_nodes.float().mean().item():.0f}; "
+        f"{int(used.sum())} visited obs, their distributions sum to 1 within 1e-4")
+    say(f"phase dist took {time.perf_counter() - t:.1f}s")
+    twin = DistSelfPlayDriver(cfg._replace(sims=DIST_PROFILE_SIMS), device="cuda",
+                              log=lambda s: None)
+    twin.step()  # warm-up
+    torch.cuda.synchronize()
+    report_profile(torch, twin, wall, DIST_MOVES, f"dist, {DIST_PROFILE_SIMS} sims a move "
+                   f"scaled to {cfg.sims}", scale=cfg.sims / DIST_PROFILE_SIMS, cuda_only=True)
+
+
+def phase_dist_online(torch, smi):
+    """DistValueSim with training at the CLI's width until a session has run
+    and one move more on the trained net: the stored target rows sum to 1;
+    then one DistModel
+    train step on the card against the CPU with TF32 switched on around it,
+    and a step's device time."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.obs.metrics import MetricsReader, MetricsWriter
+    from tetris_mcts_tpu_torch.runtime.selfplay import DistSelfPlayDriver, SelfPlayConfig
+    from tetris_mcts_tpu_torch.train.trainer import DistModel
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_train_cases import agreeing_minibatch
+
+    t = time.perf_counter()
+    cfg = SelfPlayConfig(evaluator="dist", low=5, train_rows_trigger=DIST_ONLINE_ROWS,
+                         train_max_iters=DIST_ONLINE_ITERS)
+    cuts = (f"cuts: train_rows {DIST_ONLINE_ROWS} (CLI 5000), train_max_iters "
+            f"{DIST_ONLINE_ITERS} (CLI 50000), at most {DIST_ONLINE_MOVE_CAP} moves, "
+            f"{DIST_ONLINE_AFTER} after the first session")
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "metrics.jsonl")
+        metrics = MetricsWriter(mpath)
+        driver = DistSelfPlayDriver(cfg, device="cuda", log=lambda s: None, metrics=metrics)
+        model = driver.model
+        fixed = torch.as_tensor(np.random.RandomState(11).randint(-1, 2, (64, 1, 20, 10)),
+                                dtype=torch.float32, device="cuda")
+        before = model.apply_fn()(fixed)
+        moves, session_move = 0, None
+        reset_launches()
+        t_run = time.perf_counter()
+        while moves < DIST_ONLINE_MOVE_CAP:
+            driver.step()
+            moves += 1
+            if session_move is None and driver.n_trains:
+                session_move = moves
+            if session_move is not None and moves - session_move >= DIST_ONLINE_AFTER:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = record("dist online", read_launches())
+        metrics.close()
+        if session_move is None:
+            raise AssertionError(f"dist online: no training session in {moves} moves "
+                                 f"({driver._prev_total} rows harvested; {cuts})")
+        check_launches("dist online path", launches, {"insert7_walk": moves * cfg.sims})
+        change = float((model.apply_fn()(fixed) - before).abs().max())
+        if not change > 0:
+            raise AssertionError("dist online: the net's outputs did not change in training")
+        count = driver.replay.count.item()
+        sums = driver.replay.dist[:count].sum(1)
+        row_err = close("dist online: stored target rows sum to 1", sums,
+                        torch.ones_like(sums), False, 0.0, 1e-3)
+        reader = MetricsReader(mpath)
+        reader.poll()
+        sessions = reader.of_kind("train_session")
+        say(f"phase dist online (DistValueSim, training): {moves} moves x {cfg.sims} sims at "
+            f"B={cfg.batch} in {wall:.2f}s, the first session after move {session_move}; "
+            f"launches {launches}; {driver._prev_total} rows harvested, the {count} in the "
+            f"ring sum to 1 within {row_err:.2e}; net outputs on 64 fixed boards moved by up "
+            f"to {change:.4f} ({smi}; {cuts})")
+        for e in sessions:
+            say(f"  session {e['n']}: {e['rows']} rows, {e['iters']} steps in {e['seconds']:.2f}s "
+                f"({e['iters'] / e['seconds']:.1f} steps/s), loss train {e['loss_train']:.4f} "
+                f"val {e['loss_val']:.4f}")
+
+        # a train step's device time and launches at batch 128
+        rows = min(4096, count)
+        newest = (np.arange(driver.replay.idx.item() - rows, driver.replay.idx.item())
+                  % cfg.memory_size)
+        states, target, weight = driver._training_columns(newest)
+        cols = [states.float()[:, None], target, weight / weight.mean()]
+        sd = {k: v.detach().clone() for k, v in model.net.state_dict().items()}
+        mu, nu, n_steps = model.opt.state()
+
+        def copy_of(dev):
+            m = DistModel(seed=cfg.seed, device=dev)
+            m.load_state({k: v.to(dev) for k, v in sd.items()})
+            m.opt.load([x.to(dev) for x in mu], [x.to(dev) for x in nu], n_steps)
+            return m
+
+        prof_m = copy_of("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        idxs = iter([torch.randint(0, rows, (cfg.train_batch,), generator=gen, device="cuda")
+                     for _ in range(43)])
+        step = lambda: prof_m.train_step(cols, next(idxs))
+        for _ in range(3):
+            step()
+        step_ms, step_launches = device_ms_all(step, 20)
+        step_call_ms = cuda_ms(step, 20)
+        say(f"  DistModel train_step at batch {cfg.train_batch}: {step_ms:.4f} ms device, "
+            f"{step_launches:.0f} kernel launches, {step_call_ms:.4f} ms a call between CUDA "
+            f"events, {1e3 / step_call_ms:.1f} steps/s ({smi})")
+
+        # one step on the card against the CPU, TF32 switched on around it
+        cpu_m, gpu_m = copy_of("cpu"), copy_of("cuda")
+        cols_cpu = [c.cpu() for c in cols]
+        idx, draws, crossed = agreeing_minibatch(cpu_m.net, gpu_m.net, cols_cpu[0],
+                                                 cfg.train_batch)
+        prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            lc, _, gc = cpu_m.loss_and_grads(tuple(c[idx] for c in cols_cpu))
+            lg, _, gg = gpu_m.loss_and_grads(tuple(c[idx.cuda()] for c in cols))
+            grad_err = max(close(f"dist train step grad {n}", a, b, False, 1e-4,
+                                 1e-5 * float(b.abs().max()))
+                           for n, a, b in zip(cpu_m.names, gg, gc))
+            loss_err = close("dist train step loss", lg, lc, False, 1e-5, 0.0)
+            cpu_m.train_step(cols_cpu, idx)
+            gpu_m.train_step(cols, idx.cuda())
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        param_err = max(close(f"dist train step param {n}", a, b, False, 1e-4, 1e-6)
+                        for n, a, b in zip(cpu_m.names, gpu_m.net.parameters(),
+                                           cpu_m.net.parameters()))
+        say(f"  DistModel train_step on the card vs the CPU (TF32 switched on around it): "
+            f"loss err {loss_err:.3e}, grads max abs err {grad_err:.3e} (rtol 1e-4, atol 1e-5 "
+            f"x each tensor's largest), params after the Yogi step {param_err:.3e} (rtol 1e-4, "
+            f"atol 1e-6); minibatch draw {draws} ({crossed} ReLU inputs crossed over in the "
+            f"draws before)")
+    say(f"phase dist online took {time.perf_counter() - t:.1f}s")
+
+
+def phase_surface(torch, smi):
+    """The VV tree's surface at the CLI's width (B=64, pools 4096, depth 96)
+    with SURFACE_SIMS sims: SURFACE_MOVES lp moves with both kernels, then
+    with `--select_kernel 0`, with `--insert_kernel 0` (each equal, bit for
+    bit, to the kernels' run in actions and every tree array, and in the
+    traces of one more select walk), and under `--policy max` (the plain
+    select and backups: only the insert kernel launches)."""
+    from tetris_mcts_tpu_torch.ops import tree_walk
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, SelfPlayDriver
+    from tetris_mcts_tpu_torch.search import mcts
+
+    t = time.perf_counter()
+    cfg = SelfPlayConfig(benchmark=True, sims=SURFACE_SIMS)
+    want = SURFACE_MOVES * cfg.sims
+    runs = {}
+    for label, kw, launched in (
+            ("kernels", {}, ("select_walk", "insert7_walk", "lp_backup_walk")),
+            ("select_kernel 0", {"select_kernel": False}, ("insert7_walk", "lp_backup_walk")),
+            ("insert_kernel 0", {"insert_kernel": False}, ("select_walk", "lp_backup_walk")),
+            ("max", {"policy": "max"}, ("insert7_walk",))):
+        driver = SelfPlayDriver(cfg._replace(**kw), device="cuda", log=lambda s: None)
+        torch.cuda.synchronize()
+        reset_launches()
+        t_run = time.perf_counter()
+        acts = []
+        for _ in range(SURFACE_MOVES):
+            driver.step()
+            acts.append(driver.last_stats.action)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = record(f"surface {label}", read_launches())
+        check_launches(f"surface {label}", launches, {k: want for k in launched})
+        runs[label] = (driver, torch.stack(acts))
+        say(f"  surface {label}: {SURFACE_MOVES} moves x {cfg.sims} sims at B={cfg.batch} in "
+            f"{wall:.2f}s ({wall / SURFACE_MOVES * 1e3:.1f} ms a move); launches {launches}")
+    ref, ref_acts = runs["kernels"]
+    tcfg = ref.search_cfg.tree
+    planes = mcts.TorchPlanes(99, "cuda")(cfg.batch, tcfg.max_depth)
+    ref_traces = tree_walk.select_walk(ref.trees, *planes, tcfg)[:2]
+    for label in ("select_kernel 0", "insert_kernel 0"):
+        driver, acts = runs[label]
+        close(f"surface {label} actions", acts, ref_acts, True)
+        for f in ref.trees.__dataclass_fields__:
+            close(f"surface {label} {f}", getattr(driver.trees, f), getattr(ref.trees, f), True)
+        for n, a, b in zip(("traces", "lengths"),
+                           tree_walk.select_walk(driver.trees, *planes, tcfg)[:2], ref_traces):
+            close(f"surface {label} {n}", a, b, True)
+    mx = runs["max"][0]
+    st = mx.last_stats
+    if not (bool(torch.isfinite(mx.trees.vmax).all()) and float(mx.trees.vmax.max()) > 0
+            and bool((st.child_stats[:, 0].sum(1) > 0).all())):
+        raise AssertionError("surface max: no vmax backed up, or a root without visits")
+    say(f"phase surface: --select_kernel 0 and --insert_kernel 0 equal to the kernels' run "
+        f"bit for bit (actions, every tree array, a select walk's traces); --policy max ran "
+        f"on the insert kernel alone, vmax up to {float(mx.trees.vmax.max()):.2f} ({smi}; "
+        f"sims cut to {SURFACE_SIMS} from 100); in {time.perf_counter() - t:.1f}s")
 
 
 def walk_edges(torch, tree_walk, T, B=67):

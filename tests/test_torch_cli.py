@@ -10,6 +10,9 @@ the `cycle` plan against the JAX package's, and one real cycle iteration.
 The VP-net agents: ApproxPolicyIter frozen and online (a session, its
 checkpoint, reloaded), HybridSim, FiniteSim and FullSim, `train --model vp`
 on rows an ApproxPolicyIter run saved, and the VP cycle's plan.
+DistValueSim: frozen and online (a session, its checkpoint, reloaded),
+`train --model dist` on saved rows against the JAX package's Gaussian
+targets, and the dist cycle's plan against the JAX package's.
 """
 
 import os
@@ -41,7 +44,7 @@ def test_play_runs_episodes_on_cpu(capsys):
     assert driver.score_tracker.n == driver.episodes
 
 
-@pytest.mark.parametrize("flag", ["--ensemble=2", "--allow_clamp"])
+@pytest.mark.parametrize("flag", ["--ensemble=2"])
 def test_play_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         play.main(TINY + [flag])
@@ -73,7 +76,7 @@ def test_play_agent_runs_a_game_on_cpu(agent, capsys):
     assert re.search(r"Episode:\s+1\s+Score:\s+\d+\s+Lines Cleared:\s+\d+", err)
 
 
-@pytest.mark.parametrize("agent", ["DistValueSim", "ValueSim2", "DQN"])
+@pytest.mark.parametrize("agent", ["ValueSim2", "DQN", "DistDQN"])
 def test_play_refuses_unported_agent_types(agent, capsys):
     with pytest.raises(SystemExit) as exc:
         play.main(TINY + ["--agent_type", agent])
@@ -296,7 +299,7 @@ def test_train_on_saved_rows_then_play_the_trained_net(tmp_path, capsys):
     assert not torch.equal(trained.model.apply_fn()(boards)[0], seed_net[0])
 
 
-@pytest.mark.parametrize("flag", ["--model=dist", "--ensemble=2"])
+@pytest.mark.parametrize("flag", ["--ensemble=2"])
 def test_train_refuses_unported_models(flag, capsys):
     from tetris_mcts_tpu_torch.cli import train
 
@@ -348,9 +351,9 @@ def test_cycle_refuses_unported_agent_types(capsys):
     from tetris_mcts_tpu_torch.cli import cycle
 
     with pytest.raises(SystemExit) as exc:
-        cycle.main(["--agent_type", "DistValueSim", "--dry_run"])
+        cycle.main(["--agent_type", "ValueSim2", "--dry_run"])
     assert exc.value.code == 2
-    assert "--agent_type DistValueSim is not ported" in capsys.readouterr().err
+    assert "--agent_type ValueSim2 is not ported" in capsys.readouterr().err
 
 
 def test_cycle_runs_one_iteration_on_cpu(tmp_path):
@@ -476,3 +479,92 @@ def test_cycle_dry_run_trains_the_vp_net_for_the_vp_agents(tmp_path, capsys):
     cycle.main(["--agent_type", "ValueSimLP", "--iters", "1", "--dry_run", "--data_dir",
                 str(tmp_path), "--device", "cpu"])
     assert "--model vv" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# DistValueSim
+# ---------------------------------------------------------------------------
+
+def test_play_dist_value_sim_runs_on_cpu():
+    from tetris_mcts_tpu_torch.runtime.selfplay import DistSelfPlayDriver
+    from tetris_mcts_tpu_torch.train.trainer import DIST_DEFAULT_CKPT, DistModel
+
+    driver = play.main(TINY + ["--agent_type", "DistValueSim", "--ngames", "1",
+                               "--max_moves", "3"])
+    assert isinstance(driver, DistSelfPlayDriver) and isinstance(driver.model, DistModel)
+    assert driver.model.checkpoint_path == DIST_DEFAULT_CKPT and driver.cfg.benchmark
+    assert (driver.cfg.low, driver.dcfg) == (5, (50, 1000.0, 5))
+    assert driver.moves == 3 and int(driver.replay.total) == 0
+    probs = driver.last_stats.probs  # visit-proportional
+    assert torch.allclose(probs.sum(1), torch.ones(2))
+
+
+def test_play_dist_online_trains_and_reloads_on_cpu(tmp_path, capsys):
+    ckpt, metrics = str(tmp_path / "ck" / "dist.pt"), str(tmp_path / "m.jsonl")
+    driver = play.main(TINY + ONLINE + ["--agent_type", "DistValueSim", "--checkpoint", ckpt,
+                                        "--metrics", metrics])
+    err = capsys.readouterr().err
+    assert not driver.cfg.benchmark and driver.cfg.checkpoint_each_train
+    assert driver.n_trains >= 1 and "Training session 1: " in err
+    reader = MetricsReader(metrics)
+    reader.poll()
+    sessions = reader.of_kind("train_session")
+    assert len(sessions) == driver.n_trains and sessions[0]["iters"] == 10
+    assert sessions[0]["grad_norm"] is None  # no grad-norm watch, as the reference
+    n = int(driver.replay.count)
+    np.testing.assert_allclose(driver.replay.dist[:n].sum(1).numpy(), 1.0, rtol=1e-5)
+    boards = torch.as_tensor(np.random.RandomState(0).randint(-1, 2, (16, 1, 20, 10)),
+                             dtype=torch.float32)
+    again = play.main(TINY + ["--agent_type", "DistValueSim", "--checkpoint", ckpt,
+                              "--load_model", "--ngames", "0"])
+    assert again.cfg.benchmark
+    assert torch.equal(driver.model.apply_fn()(boards), again.model.apply_fn()(boards))
+    assert again.model.opt.count == driver.model.opt.count > 0
+
+
+def test_train_dist_on_saved_rows_matches_the_jax_targets(tmp_path, capsys):
+    from tetris_mcts_tpu.cli.train import gaussian_dist_targets as jax_targets
+    from tetris_mcts_tpu_torch.cli import train
+    from tetris_mcts_tpu_torch.utils.data import DataLoader
+
+    play.main(TINY + ["--batch", "4", "--save", "--save_dir", str(tmp_path / "data"),
+                      "--ngames", "50", "--max_moves", "10"])
+    rows = DataLoader(str(tmp_path / "data" / "data0.rec"))
+    _, value, variance, _ = train.build_targets(rows, True, True, 1)
+    got = train.gaussian_dist_targets(value, variance, 16, 200.0)
+    np.testing.assert_array_equal(got, jax_targets(value, variance, 16, 200.0))
+    assert got.shape == (40, 16) and float(got.max()) > 0.2
+    ckpt = str(tmp_path / "ck" / "dist.pt")
+    hist = train.main(["--device", "cpu", "--model", "dist", "--atoms", "16", "--vmax", "200",
+                       "--data", str(tmp_path / "data" / "data*.rec"), "--td", "--weighted",
+                       "--weighted_mode", "1", "--early_stopping", "--validation",
+                       "--iters_per_val", "5", "--max_iters", "20", "--batch_size", "8",
+                       "--checkpoint", ckpt, "--loss_type", "mae"])
+    out = capsys.readouterr().out
+    assert "--loss_type applies to the vv model only; ignored" in out
+    assert "Saving model..." in out and len(hist[0]) == 4 and hist[-1][0] <= 20
+    from tetris_mcts_tpu_torch.train.trainer import DistModel
+
+    m = DistModel(16, device="cpu", checkpoint_path=ckpt)
+    assert m.load() and m.opt.count == hist[-1][0]
+    boards = torch.as_tensor(np.random.RandomState(0).randint(-1, 2, (8, 1, 20, 10)),
+                             dtype=torch.float32)
+    assert not torch.equal(m.apply_fn()(boards), DistModel(16, device="cpu").apply_fn()(boards))
+
+
+def test_cycle_dry_run_plan_for_dist_value_sim_matches_jax(tmp_path, capsys):
+    from tetris_mcts_tpu.cli import cycle as jax_cycle
+    from tetris_mcts_tpu_torch.cli import cycle
+
+    plans = []
+    for main, suffix, extra in ((cycle.main, ".rec", ["--device", "cpu"]),
+                                (jax_cycle.main, ".h5", [])):
+        d = tmp_path / suffix[1:]
+        (d / "self0").mkdir(parents=True)
+        (d / "self0" / f"data0{suffix}").touch()
+        main(["--agent_type", "DistValueSim", "--iters", "1", "--dry_run", "--checkpoint",
+              "ck", "--data_dir", str(d)] + extra)
+        plans.append(normalised_plan(capsys.readouterr().out.replace(str(d), "D")))
+    assert plans[0] == plans[1]
+    train_cmd = [ln for ln in plans[0] if "cli.train" in ln]
+    assert len(train_cmd) == 1 and "--model dist" in train_cmd[0]

@@ -25,7 +25,13 @@ torch.equal. The forward picks its boards per block from n and tiles the
 FC over 16 boards: it is checked from 1 to 1792 boards, across tile and
 block edges. Online self-play adds two: one VV train step on the card
 against the CPU (TF32 off through the backward), and six store moves whose
-replay ring and trees must equal the CPU's.
+replay ring and trees must equal the CPU's. The distributional search adds
+two: four DistValueSim moves (insert kernel, plain walks) against the CPU
+(integers and rows equal; values and m2 within rtol 1e-6 / atol 1e-5, the
+distributions within rtol 1e-6 / atol 1e-6), and one DistModel train step
+against the CPU. The VV surface adds two: lp moves with `--select_kernel
+0` or `--insert_kernel 0` equal to the kernels' in every tree array, and
+lp moves under `--policy max` (plain select and backups) against the CPU.
 """
 
 import numpy as np
@@ -375,3 +381,127 @@ def test_store_move_on_card_matches_cpu(card):
     assert rc.total.item() > 96 and rc.cand.item() > rc.total.item()
     for f in ("visits", "values", "vars_", "obs_bits", "n_obs", "root"):
         assert torch.equal(getattr(tg, f).cpu(), getattr(tc, f)), f
+
+
+class HostGumbels(HostPlanes):
+    """`HostPlanes` with the distributional walk's draws."""
+
+    def level_gumbels(self, B, D):
+        return self(B, D)[0]
+
+
+def dist_stub(x):
+    """A deterministic distribution over 16 bins from the board's cell sum."""
+    w = torch.remainder(x.sum(dim=(1, 2, 3))[:, None]
+                        + 3 * torch.arange(16, device=x.device), 5.0) + 1.0
+    return w / w.sum(1, keepdim=True)
+
+
+def test_dist_move_on_card_matches_cpu(card):
+    """Four DistValueSim moves (the stub net, pools of 128 so a harvest is
+    stored): the card (insert kernel) equals the CPU (plain insert)."""
+    from tetris_mcts_tpu_torch.search import distributional as DD
+
+    scfg = M.SearchConfig(tree=T.TreeConfig(max_nodes=128, max_obs=128, table_size=256,
+                                            max_depth=16, low=5), sims=8)
+    dcfg = DD.DistConfig(atoms=16, vmax=200.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        W.reset_launches()
+        move = DD.make_dist_move_fn(dist_stub, scfg, dcfg, HostGumbels(3, dev),
+                                    min_visits_store=1)
+        dts, envs = DD.init_dist_batch(5, 4, scfg, dcfg, device=dev)
+        rep = DD.init_dist_replay(256, 16, dev)
+        acts = []
+        for _ in range(4):
+            envs, st = move(dts, envs, rep)
+            acts.append(st.action)
+        out[dev] = (torch.stack(acts), envs, dts, rep, dict(W.LAUNCHES))
+    (ag, eg, dg, rg, lg), (ac, ec, dc, rc, lc) = out["cuda"], out["cpu"]
+    assert lg["insert7_walk"] == 4 * 8 and sum(lg.values()) == 32 and sum(lc.values()) == 0
+    assert torch.equal(ag.cpu(), ac) and torch.equal(eg.cpu(), ec)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits", "root"):
+        assert torch.equal(getattr(dg.base, f).cpu(), getattr(dc.base, f)), f
+    torch.testing.assert_close(dg.base.values.cpu(), dc.base.values, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(dg.obs_m2.cpu(), dc.obs_m2, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(dg.obs_dist.cpu(), dc.obs_dist, rtol=1e-6, atol=1e-6)
+    assert rc.total.item() == rg.total.item() > 0
+    for a, b in zip(rg.rows(), rc.rows()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-6)
+
+
+def test_dist_train_step_on_card_matches_cpu(card):
+    """One DistModel train step on the card against the CPU, TF32 switched
+    on around it, on a minibatch both devices agree on at every ReLU."""
+    from tetris_mcts_tpu_torch.train.trainer import DistModel
+    from torch_train_cases import agreeing_minibatch
+
+    rng = np.random.RandomState(8)
+    n = 512
+    d = rng.uniform(0, 1, (n, 50)).astype(np.float32) ** 4
+    cols = [torch.as_tensor(rng.randint(-1, 2, (n, 1, 20, 10)).astype(np.float32)),
+            torch.as_tensor(d / d.sum(1, keepdims=True)),
+            torch.as_tensor(rng.uniform(1, 5, n).astype(np.float32))]
+    cpu, gpu = DistModel(seed=5, device="cpu"), DistModel(seed=5, device="cuda")
+    idx, _, _ = agreeing_minibatch(cpu.net, gpu.net, cols[0], 128)
+    gcols = [c.cuda() for c in cols]
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lc, _, gc = cpu.loss_and_grads(tuple(c[idx] for c in cols))
+        lg, _, gg = gpu.loss_and_grads(tuple(c[idx.cuda()] for c in gcols))
+        for name, a, b in zip(cpu.names, gg, gc):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5 * float(b.abs().max()),
+                                       msg=name)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+        cpu.train_step(cols, idx)
+        gpu.train_step(gcols, idx.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(gpu.net.parameters(), cpu.net.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-6)
+
+
+def stub_lp(x):
+    n = x.shape[0]
+    return (torch.linspace(1.0, 8.0, n, device=x.device),
+            torch.full((n,), 2.5, device=x.device))
+
+
+def lp_moves(dev, moves=4, **tree_kw):
+    """`moves` lp moves (stub net, host planes) at B=8; the trees, the
+    actions and the walk launches."""
+    scfg = M.SearchConfig(tree=T.TreeConfig(max_nodes=256, max_obs=256, table_size=512,
+                                            max_depth=24, **tree_kw), sims=6)
+    W.reset_launches()
+    move = M.make_move_fn(M.nn_child_evaluator(stub_lp), scfg, HostPlanes(6, dev))
+    trees, envs = M.init_batch(2, 8, scfg, device=dev)
+    acts = []
+    for _ in range(moves):
+        envs, st = move(trees, envs)
+        acts.append(st.action)
+    return trees, torch.stack(acts), dict(W.LAUNCHES)
+
+
+@pytest.mark.parametrize("flag", ["select_kernel", "insert_kernel"])
+def test_plain_route_on_card_equals_the_kernels(card, flag):
+    tk, ak, lk = lp_moves("cuda")
+    tp, ap, lp_ = lp_moves("cuda", **{flag: False})
+    assert lk["select_walk"] == lk["insert7_walk"] == lk["lp_backup_walk"] == 24
+    gone = "select_walk" if flag == "select_kernel" else "insert7_walk"
+    assert lp_[gone] == 0 and sum(lp_.values()) == 48
+    assert torch.equal(ak, ap)
+    for f in tk.__dataclass_fields__:
+        assert torch.equal(getattr(tk, f), getattr(tp, f)), f
+
+
+def test_policy_max_on_card_matches_cpu(card):
+    tg, ag, lg = lp_moves("cuda", policy="max")
+    tc, ac, _ = lp_moves("cpu", policy="max")
+    assert lg == {"select_walk": 0, "insert7_walk": 24, "lp_backup_walk": 0, "backup_walk": 0}
+    assert torch.equal(ag.cpu(), ac)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "obs_bits", "tbl_obs", "root"):
+        assert torch.equal(getattr(tg, f).cpu(), getattr(tc, f)), f
+    for f in ("values", "vars_", "vmax"):
+        torch.testing.assert_close(getattr(tg, f).cpu(), getattr(tc, f), rtol=1e-6, atol=1e-5)
+    assert float(tc.vmax.max()) > 0

@@ -34,7 +34,7 @@ def test_no_forbidden_imports(path):
 
 def test_kernel_modules_are_checked():
     """Every module that wraps a kernel, the move programs that drive
-    them (the VP search's too), the training, replay and metrics modules of
+    them (the VP and distributional searches' too), the training, replay and metrics modules of
     online self-play, the offline cycle's savers, watchdog and commands,
     and the JAX checkpoint reader are among the sources checked above."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
@@ -43,7 +43,7 @@ def test_kernel_modules_are_checked():
                 "models/losses.py", "models/nets.py", "train/optim.py", "train/trainer.py",
                 "obs/metrics.py", "utils/data.py", "runtime/watchdog.py", "cli/train.py",
                 "cli/cycle.py", "cli/replay.py", "cli/__init__.py", "search/vp.py",
-                "train/flax_msgpack.py"):
+                "search/distributional.py", "train/flax_msgpack.py"):
         assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
 
 

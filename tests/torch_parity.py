@@ -270,3 +270,51 @@ def torch_gumbels_of(planes):
         return torch.as_tensor(np.array(jax.random.gumbel(sub, (B_, 7))))
 
     return draw
+
+
+# ---------------------------------------------------------------------------
+# the XLA walks' draws: `tree.select_batched` and the distributional
+# `select_batched` split a key per lane per level
+# ---------------------------------------------------------------------------
+
+@jax.jit
+def _xla_walk_gumbels_jit(k_sel, zeros_bd):
+    B, D = zeros_bd.shape
+    keys = jax.random.split(k_sel, B)
+
+    def body(keys, _):
+        ks = jax.vmap(jax.random.split)(keys)
+        g = jax.vmap(lambda k: jax.random.gumbel(k, (7,)))(ks[:, 1])
+        return ks[:, 0], g
+
+    _, gs = jax.lax.scan(body, keys, None, length=D)
+    return jnp.swapaxes(gs, 0, 1)
+
+
+def xla_walk_gumbels(k_sel, B_, D):
+    """The gumbels (B, D, 7) that the JAX package's XLA select walks draw
+    from the keys split(k_sel, B) under a rule without per-child draws (clt,
+    max, the distributional rule): per level, `keys, sub = split(keys)` a
+    lane and `gumbel(sub, (7,))`. Level d's draws do not depend on where
+    the walk stops, so all D levels are drawn."""
+    return torch.as_tensor(np.array(_xla_walk_gumbels_jit(k_sel, jnp.zeros((B_, D)))))
+
+
+class JaxXlaWalkKeyPlanes(JaxKeyPlanes):
+    """`JaxKeyPlanes` for a JAX move program that selects with the XLA walk
+    (`--policy max`, or `select_kernel=False`): the simulation's k_sel feeds
+    `xla_walk_gumbels`; no per-child planes."""
+
+    def __call__(self, B_, D):
+        self._k, k_sel, self._k_ev = jax.random.split(self._k, 3)
+        return xla_walk_gumbels(k_sel, B_, D), torch.zeros(B_, D, 7)
+
+
+class JaxDistKeyPlanes(JaxVPKeyPlanes):
+    """Replays the JAX distributional move's key schedule (the VP one: per
+    move `_, k_sims = split(sub)`, per sim `key, k_sel = split(key)`) as the
+    select walk's gumbels `xla_walk_gumbels(k_sel)`."""
+
+    def level_gumbels(self, B_, D):
+        self._k, k_sel = jax.random.split(self._k)
+        return xla_walk_gumbels(k_sel, B_, D)

@@ -1,12 +1,12 @@
 """Shared CLI helpers: the per-net default checkpoint paths."""
 
-from tetris_mcts_tpu_torch.train.trainer import DEFAULT_CKPT, VP_DEFAULT_CKPT
+from tetris_mcts_tpu_torch.train.trainer import DEFAULT_CKPT, DIST_DEFAULT_CKPT, VP_DEFAULT_CKPT
 
-_CKPT_BY_KIND = {"vv": DEFAULT_CKPT, "vp": VP_DEFAULT_CKPT}
+_CKPT_BY_KIND = {"vv": DEFAULT_CKPT, "vp": VP_DEFAULT_CKPT, "dist": DIST_DEFAULT_CKPT}
 
 
 def resolve_ckpt(args_ckpt: str, kind: str) -> str:
-    """The checkpoint path of the `kind` net ("vv" or "vp"). Nets of
+    """The checkpoint path of the `kind` net ("vv", "vp" or "dist"). Nets of
     different kinds never share a file: an explicit --checkpoint wins, and
     only the shared default (the VV net's) is redirected to the kind's
     own."""

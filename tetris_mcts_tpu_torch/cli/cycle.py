@@ -12,7 +12,8 @@ last cycle found in it, and `--dry_run` prints the commands without
 running them. `--train_args` and `--play_args` append flags to the train
 and to every play command (for example smaller pools). `--model` (the
 net trained each cycle) defaults to vp for the VP-net agents
-(ApproxPolicyIter, HybridSim, FiniteSim, FullSim), else vv.
+(ApproxPolicyIter, HybridSim, FiniteSim, FullSim), dist for DistValueSim,
+else vv.
 
     python -m tetris_mcts_tpu_torch cycle --iters 10 --data_dir ./data
 """
@@ -46,7 +47,7 @@ def build_parser():
     p.add_argument("--agent_type", default="ValueSimLP")
     p.add_argument("--model", default="", choices=("", "vv", "vp", "dist"),
                    help="the net trained each cycle (default: vp for the VP-net "
-                        "agents, else vv; dist is not ported)")
+                        "agents, dist for DistValueSim, else vv)")
     p.add_argument("--clear", "-c", action="store_true")
     p.add_argument("--resume", "-r", action="store_true")
     p.add_argument("--checkpoint", default=DEFAULT_CKPT)
@@ -83,10 +84,9 @@ def main(argv=None):
     if args.agent_type not in AGENT_TYPES:
         parser.error(f"--agent_type {args.agent_type} is not ported yet (the port runs "
                      f"{', '.join(AGENT_TYPES)})")
-    if args.model == "dist":
-        parser.error("--model dist is not ported yet (the port trains the vv and vp nets)")
     if not args.model:
-        args.model = "vp" if AGENT_TYPES[args.agent_type][0] in VP_EVALUATORS else "vv"
+        ev = AGENT_TYPES[args.agent_type][0]
+        args.model = "vp" if ev in VP_EVALUATORS else "dist" if ev == "dist" else "vv"
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to run the plain versions)")

@@ -15,17 +15,28 @@ map):
 - ApproxPolicyIter: the VP search (`search/vp.py`) on the VP net, trains;
 - HybridSim, FiniteSim, FullSim: playouts guided by the VP net's policy,
   30 and 50 steps and to the game's end (`--rollout_depth` overrides), no
-  training.
+  training;
+- DistValueSim: the distributional (C51) search
+  (`search/distributional.py`) on the distributional net (50 bins on [0,
+  1000]), trains.
 
 Training runs as in the reference: when the agent trains and `--online`
 is given and `--benchmark` is not. It then saves the model after every
 session and at the end (`--checkpoint`, the port's own format; its
 default is the VV net's `train/trainer.DEFAULT_CKPT`, redirected to
-`VP_DEFAULT_CKPT` for the VP-net agents, `cli.resolve_ckpt`);
-`--load_model` reads it first, a checkpoint of the JAX package too. `--low` defaults as in the reference: 10 under bayes, 5
-for Vanilla/VanillaC, else 1. The reference's other agent types, and any
-reference flag this port does not read, are refused with a message that
-names them.
+`VP_DEFAULT_CKPT` for the VP-net agents and `DIST_DEFAULT_CKPT` for
+DistValueSim, `cli.resolve_ckpt`); `--load_model` reads it first, a
+checkpoint of the JAX package too. `--low` defaults as in the reference:
+10 under bayes, 5 for Vanilla/VanillaC and DistValueSim, else 1. The
+reference's other agent types, and any reference flag this port does not
+read, are refused with a message that names them.
+
+The search's walks: `--select_kernel 0` and `--insert_kernel 0` run that
+step's plain walk on the card in place of its kernel (both default to 1,
+the kernels); `--policy max` runs the plain select walk and backups, which
+keep its `vmax` statistic, as the reference runs its XLA walks for it.
+`--allow_clamp` accepts pools too small for one move (a degraded search,
+with a warning) instead of refusing them.
 
 Channels: `--save` writes one row a game a move to
 `{save_dir}/{save_file}{cycle}.rec` (`utils/data.DataSaver`),
@@ -69,11 +80,15 @@ AGENT_TYPES = {
     "ApproxPolicyIter": ("vp", True),
     "HybridSim": ("hybrid", False), "FiniteSim": ("finite", False),
     "FullSim": ("full", False),
+    "DistValueSim": ("dist", True),
 }
 # the evaluators that run on the VP net
 VP_EVALUATORS = ("vp", "hybrid", "finite", "full")
 # the reference CLI's other agent types, not ported yet
-UNPORTED_AGENT_TYPES = ("DistValueSim", "ValueSim2", "DQN", "DistDQN")
+UNPORTED_AGENT_TYPES = ("ValueSim2", "DQN", "DistDQN")
+# the selection rules of --policy: the select kernel's (ops/tree_walk.POLICIES)
+# and max, which runs the plain walks
+POLICY_CHOICES = POLICIES + ("max",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,10 +123,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scoring", type=int, default=0, choices=(0, 1))
     p.add_argument("--randomizer", type=int, default=0, choices=(0, 1))
     p.add_argument("--gamma", type=float, default=0.999)
-    p.add_argument("--policy", default="clt", choices=POLICIES)
+    p.add_argument("--policy", default="clt", choices=POLICY_CHOICES,
+                   help="selection rule; max runs the plain select walk and backups")
     p.add_argument("--low", type=int, default=None,
                    help="visits under which children are chosen first, before the "
-                        "policy (default: 10 under bayes, 5 for Vanilla/VanillaC, else 1)")
+                        "policy (default: 10 under bayes, 5 for Vanilla/VanillaC and "
+                        "DistValueSim, else 1)")
     p.add_argument("--dump_dir", default="",
                    help="write dump.npz of each session's training set here "
                         "('' = off)")
@@ -129,6 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--benchmark_batch", type=int, default=0)
     p.add_argument("--benchmark_max_moves", type=int, default=5000)
     p.add_argument("--benchmark_max_nodes", type=int, default=0)
+    p.add_argument("--allow_clamp", action="store_true",
+                   help="accept max_nodes/max_obs too small for one move (a degraded "
+                        "search: the sims past the pool expand nothing) instead of "
+                        "refusing them")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--load_model", action="store_true",
                    help="load --checkpoint before playing")
@@ -166,6 +187,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stall_startup", type=float, default=3600,
                    help="the watchdog's allowance at startup, at a training session and "
                         "at the benchmark twin's first move")
+    p.add_argument("--select_kernel", type=int, nargs="?", const=1, default=1,
+                   choices=(0, 1),
+                   help="1: the select kernel (default); 0: the plain select walk")
+    p.add_argument("--insert_kernel", type=int, nargs="?", const=1, default=1,
+                   choices=(0, 1),
+                   help="1: the insert kernel (default); 0: the plain insert")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 conv/fc body in the search forward")
     p.add_argument("--device", default="cuda")
@@ -245,9 +272,9 @@ def capture_trace(driver, directory: str, moves: int, device):
 
 def main(argv=None):
     from tetris_mcts_tpu_torch.runtime import watchdog
-    from tetris_mcts_tpu_torch.runtime.selfplay import (SelfPlayConfig, SelfPlayDriver,
-                                                        VPSelfPlayDriver)
-    from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
+    from tetris_mcts_tpu_torch.runtime.selfplay import (DistSelfPlayDriver, SelfPlayConfig,
+                                                        SelfPlayDriver, VPSelfPlayDriver)
+    from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
 
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_parser()
@@ -271,8 +298,8 @@ def main(argv=None):
         low = args.low
     elif args.policy == "bayes":
         low = 10  # select_index_bayes min_n
-    elif args.agent_type in ("Vanilla", "VanillaC"):
-        low = 5   # Vanilla.py low=5
+    elif args.agent_type in ("Vanilla", "VanillaC", "DistValueSim"):
+        low = 5   # Vanilla.py low=5, select_trace_distributional low=5
     else:
         low = 1
     # online training iff the agent trains, --online is set, and not
@@ -300,7 +327,8 @@ def main(argv=None):
         benchmark_max_moves=args.benchmark_max_moves,
         benchmark_max_nodes=args.benchmark_max_nodes,
         episode_reuse=bool(args.episode_reuse), rollout_depth=args.rollout_depth,
-        bf16=args.bf16,
+        bf16=args.bf16, allow_clamp=args.allow_clamp,
+        select_kernel=bool(args.select_kernel), insert_kernel=bool(args.insert_kernel),
         checkpoint_each_train=saves_model,
         dump_dir=args.dump_dir, seed=args.seed, actions_per_drop=args.app,
         scoring=args.scoring, randomizer=args.randomizer,
@@ -318,6 +346,9 @@ def main(argv=None):
         if evaluator in VP_EVALUATORS:
             model = VPModel(args.seed, args.device,
                             checkpoint_path=resolve_ckpt(args.checkpoint, "vp"))
+        elif evaluator == "dist":
+            model = DistModel(seed=args.seed, device=args.device,
+                              checkpoint_path=resolve_ckpt(args.checkpoint, "dist"))
         else:
             model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint)
         if args.load_model:
@@ -336,7 +367,8 @@ def main(argv=None):
             status = StatusPublisher(args.status_dir, batch=args.batch)
         if args.printboard:
             status = _PrintBoard(status)
-        driver_cls = VPSelfPlayDriver if evaluator == "vp" else SelfPlayDriver
+        driver_cls = {"vp": VPSelfPlayDriver, "dist": DistSelfPlayDriver}.get(
+            evaluator, SelfPlayDriver)
         driver = driver_cls(cfg, model=model, device=args.device, metrics=metrics,
                             saver=saver, status=status)
         if saves_model:

@@ -18,10 +18,14 @@ Weights (`--weighted`): `--weighted_mode 0` the root's visits (at least
 
 `--model vp` trains the VP net on [states, value, the saved root policy
 normalised to a distribution, weight], with Adam-amsgrad at lr 1e-4 by
-default and no grad-norm watchdog; `--ewc` and `--loss_type` apply to the
-VV net only and are ignored with a message, as in the reference. Its
-checkpoint defaults to the VP net's own (`cli.resolve_ckpt`). `--model
-dist` and `--ensemble K` are refused by name.
+default and no grad-norm watchdog. `--model dist` trains the
+distributional net on [states, target distribution, weight]: the targets
+(value, variance) projected onto its `--atoms` bins on [0, `--vmax`] as a
+normalised Gaussian pmf (`gaussian_dist_targets`), with Yogi at lr 1e-3
+and no grad-norm watchdog. `--ewc` and `--loss_type` apply to the VV net
+only and are ignored with a message, as in the reference. The VP and dist
+checkpoints default to their nets' own (`cli.resolve_ckpt`). `--ensemble
+K` is refused by name.
 
     python -m tetris_mcts_tpu_torch train --td --weighted --early_stopping --validation
 """
@@ -67,10 +71,13 @@ def build_parser():
                    help="train a fresh model even with --load_model")
     p.add_argument("--model", default="vv", choices=("vv", "vp", "dist"))
     p.add_argument("--ensemble", type=int, default=0)
+    p.add_argument("--atoms", type=int, default=50, help="bins of the dist net (--model dist)")
+    p.add_argument("--vmax", type=float, default=1000.0,
+                   help="the dist net's support is [0, vmax] (--model dist)")
     p.add_argument("--loss_type", default="kldiv",
                    choices=("kldiv", "mle", "weak", "mle_approx", "mae", "mse"))
     p.add_argument("--lr", type=float, default=None,
-                   help="learning rate (default 1e-3 vv, 1e-4 vp)")
+                   help="learning rate (default 1e-3 vv and dist, 1e-4 vp)")
     p.add_argument("--cycle", type=int, default=0)
     p.add_argument("--save_loss", default="", help="loss-history directory ('' = off)")
     p.add_argument("--checkpoint", default=DEFAULT_CKPT)
@@ -108,6 +115,18 @@ def build_targets(loader, td: bool, weighted: bool, weighted_mode: int):
     return boards, value, variance, weight
 
 
+def gaussian_dist_targets(value, variance, atoms: int, vmax: float):
+    """Scalar (value, variance) targets as normalised Gaussian pmfs over the
+    dist net's bins (centers (b + 0.5) vmax / atoms, the search's grid), in
+    float64, returned as float32 (n, atoms)."""
+    centers = (np.arange(atoms, dtype=np.float64) + 0.5) * (vmax / atoms)
+    sd = np.sqrt(np.maximum(variance.astype(np.float64), 1e-2))[:, None]
+    logits = -0.5 * ((centers[None, :] - value[:, None]) / sd) ** 2
+    logits -= logits.max(axis=1, keepdims=True)
+    p = np.exp(logits)
+    return (p / p.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
 def episodic_split(loader, frac: float, rng):
     """(train mask, validation mask) holding out whole episodes."""
     eps = np.unique(loader.episode)
@@ -129,15 +148,13 @@ def main(argv=None):
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"not supported by the port yet: {' '.join(unknown)}")
-    if args.model == "dist":
-        parser.error("--model dist is not ported yet (the port trains the vv and vp nets)")
     if args.ensemble > 0:
         parser.error(f"--ensemble {args.ensemble} is not ported yet (one vv net)")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to train on the CPU)")
     from tetris_mcts_tpu_torch.cli import resolve_ckpt
-    from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
+    from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
     from tetris_mcts_tpu_torch.utils.data import DataLoader, LossSaver
 
     paths = sorted(glob.glob(args.data), key=cycle_no)
@@ -150,6 +167,9 @@ def main(argv=None):
     if vp:
         pol = loader.policy.astype(np.float32)
         cols[2] = pol / np.maximum(pol.sum(axis=1, keepdims=True), 1e-9)
+    elif args.model == "dist":
+        states, value, variance, weight = cols
+        cols = [states, gaussian_dist_targets(value, variance, args.atoms, args.vmax), weight]
 
     rng = np.random.RandomState(args.seed)
     val_rows = None
@@ -161,13 +181,19 @@ def main(argv=None):
         shuffle = False  # the held-out episodes are the tail
         val_rows = int(va.sum())  # the tail ends exactly at their boundary
 
-    if vp:
+    vv = args.model == "vv"
+    if not vv:
         for flag, on in (("--ewc", args.ewc), ("--loss_type", args.loss_type != "kldiv")):
             if on:
                 print(f"{flag} applies to the vv model only; ignored", flush=True)
+    if vp:
         model = VPModel(args.seed, args.device,
                         checkpoint_path=resolve_ckpt(args.checkpoint, "vp"),
                         lr=1e-4 if args.lr is None else args.lr, weighted=args.weighted)
+    elif args.model == "dist":
+        model = DistModel(args.atoms, args.seed, args.device,
+                          checkpoint_path=resolve_ckpt(args.checkpoint, "dist"),
+                          lr=1e-3 if args.lr is None else args.lr, weighted=args.weighted)
     else:
         model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint,
                         loss_type=args.loss_type, weighted=args.weighted,
@@ -178,7 +204,7 @@ def main(argv=None):
 
     iters_per_val, max_iters = args.iters_per_val, args.max_iters
     # only the VV net runs the grad-norm watchdog
-    extra = {} if vp else {"dump_dir": args.dump_dir}
+    extra = {"dump_dir": args.dump_dir} if vv else {}
     if args.epoch_mode:
         iters_per_val = max(len(cols[1]) // args.batch_size, 1)
         max_iters = 10**9 if args.early_stopping else args.epochs * iters_per_val
@@ -194,7 +220,7 @@ def main(argv=None):
     iters = history[-1][0] if history else 0
     print(f"Trained {iters} iterations in {seconds:.2f}s "
           f"({iters / max(seconds, 1e-9):.1f} iterations/s)", flush=True)
-    if args.ewc and not vp:
+    if args.ewc and vv:
         model.compute_fisher(cols)
     model.save(verbose=True)
     if args.save_loss:

@@ -1,5 +1,6 @@
 """The nets' losses (counterpart of the reference package's
-`models/losses.py`: the value/variance family and the VP net's two). Each
+`models/losses.py`: the value/variance family, the VP net's two and the
+distributional net's cross-entropy). Each
 returns per-sample losses (B,); reduction and sample weighting happen in
 the trainer (`train/trainer.py`).
 """
@@ -71,3 +72,10 @@ def kl_div_policy(logits, target_probs, label_smoothing=0.1):
     t = target_probs * (1.0 - label_smoothing) + label_smoothing / n
     logp = torch.log_softmax(logits, dim=-1)
     return torch.sum(t * (torch.log(torch.clamp_min(t, 1e-12)) - logp), dim=-1)
+
+
+def categorical_ce(pred_probs, target_probs):
+    """The distributional net's loss: the cross-entropy -sum t log p of the
+    target distribution t against the predicted p, p clipped at 1e-12.
+    Per-sample (B,)."""
+    return -torch.sum(target_probs * torch.log(torch.clamp_min(pred_probs, 1e-12)), dim=-1)

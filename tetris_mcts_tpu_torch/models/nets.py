@@ -1,5 +1,5 @@
-"""The value/variance net (`VVNet`) and the value/policy net (`VPNet`) as
-NCHW `nn.Module`s.
+"""The value/variance net (`VVNet`), the value/policy net (`VPNet`) and the
+distributional value net (`DistNet`) as NCHW `nn.Module`s.
 
 Counterpart of the reference package's `models/nets.py`. `VVNet`: three 3x3
 VALID convs (32 filters) with ReLU, FC 1792 -> 256 with ReLU, FC 256 -> 2,
@@ -20,6 +20,10 @@ float32 over each group's channels and positions, the variance as
 E[x^2] - E[x]^2 clamped at 0, epsilon 1e-6, then (x - mean) * (rsqrt(var +
 eps) * scale) + bias. `compute_dtype` covers the conv, norm and 128-unit FC
 body; both heads run in float32.
+
+`DistNet`: `VVNet`'s body (three 3x3 VALID convs of 32 filters with ReLU,
+FC 1792 -> 256 with ReLU) and a float32 head FC 256 -> atoms, then a
+softmax: (n, atoms) probabilities. `compute_dtype` covers the body.
 
 Precision on a CUDA card: the default (float32) path computes in true
 float32. cuDNN convolutions would run in TF32 under PyTorch's default
@@ -59,14 +63,17 @@ def tf32_off():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-class VVNet(nn.Module):
-    def __init__(self, filters: int = 32, n_fc: int = 256, seed: int = 0):
+class _ConvFC(nn.Module):
+    """Three 3x3 VALID convs with ReLU, FC 1792 -> n_fc with ReLU, and a
+    float32 head FC n_fc -> n_out: the body of `VVNet` and `DistNet`."""
+
+    def __init__(self, n_out: int, filters: int = 32, n_fc: int = 256, seed: int = 0):
         super().__init__()
         self.conv1 = nn.Conv2d(1, filters, 3)
         self.conv2 = nn.Conv2d(filters, filters, 3)
         self.conv3 = nn.Conv2d(filters, filters, 3)
         self.fc1 = nn.Linear(filters * 14 * 4, n_fc)
-        self.fc_out = nn.Linear(n_fc, 2)
+        self.fc_out = nn.Linear(n_fc, n_out)
         gen = torch.Generator().manual_seed(int(seed))
         with torch.no_grad():
             for m in (self.conv1, self.conv2, self.conv3, self.fc1, self.fc_out):
@@ -74,7 +81,7 @@ class VVNet(nn.Module):
                 _lecun_normal_(m.weight, fan_in, gen)
                 m.bias.zero_()
 
-    def forward(self, x, ubound, lbound, compute_dtype=None):
+    def logits(self, x, compute_dtype=None):
         dt = compute_dtype or torch.float32
         x = x.to(dt)
         with tf32_off():
@@ -82,8 +89,24 @@ class VVNet(nn.Module):
                 x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt)))
         x = x.flatten(1)  # (c, y, x) order
         x = F.relu(F.linear(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
-        x = F.linear(x.float(), self.fc_out.weight, self.fc_out.bias)
-        return torch.sigmoid(x) * ubound + lbound
+        return F.linear(x.float(), self.fc_out.weight, self.fc_out.bias)
+
+
+class VVNet(_ConvFC):
+    def __init__(self, filters: int = 32, n_fc: int = 256, seed: int = 0):
+        super().__init__(2, filters, n_fc, seed)
+
+    def forward(self, x, ubound, lbound, compute_dtype=None):
+        return torch.sigmoid(self.logits(x, compute_dtype)) * ubound + lbound
+
+
+class DistNet(_ConvFC):
+    def __init__(self, atoms: int = 50, filters: int = 32, n_fc: int = 256, seed: int = 0):
+        super().__init__(atoms, filters, n_fc, seed)
+
+    def forward(self, x, compute_dtype=None):
+        """x (n, 1, 20, 10) -> (n, atoms) probabilities, float32."""
+        return torch.softmax(self.logits(x, compute_dtype), -1)
 
 
 GN_GROUPS, GN_EPS = 8, 1e-6  # flax GroupNorm(num_groups=8), its default epsilon

@@ -52,7 +52,11 @@ from tetris_mcts_tpu_torch.search import tree as T
 N_ACTIONS = T.N_ACTIONS
 # Selection policies of the select kernel; a policy's index here is the
 # `Policy` enum value in csrc/tree_walk.cu, so the two orders must match
-# (tests/test_torch_search.py checks it).
+# (tests/test_torch_search.py checks it). `--policy max` is not among them:
+# its `vmax` statistic lives outside the kernels' tree layout, so a max
+# search runs the plain select walk and the plain backups, as the reference
+# runs its XLA walks for it (`search/mcts.make_run_sims`); every wrapper but
+# insert refuses a policy that is not here.
 POLICIES = ("clt", "bayes", "gauss", "ucbv", "mc", "random", "greedy")
 
 # Kernel launches per wrapper, counted where each kernel is launched.
@@ -87,6 +91,9 @@ def _launch(fn_name, *args):
 
 
 def _tree_checks(trees: T.Tree, cfg: T.TreeConfig):
+    if cfg.policy not in POLICIES:
+        raise ValueError(f"walk kernels: unknown or unported policy {cfg.policy!r} "
+                         "(--policy max runs the plain walks)")
     B, N = trees.cbase.shape
     M = trees.visits.shape[1]
     _check("cbase", trees.cbase, torch.int32, (B, N))
@@ -140,8 +147,9 @@ def select_walk_plain(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):
         n_total = visits.sum(1, keepdim=True)
         q_base = trees.values[bc, o] + sc_k - sc[:, None]
         var = trees.vars_[bc, o].clamp_min(0.0)
+        vmax = trees.vmax[bc, o] if cfg.policy == "max" else None
         q = q_base + T.explore_bonus(cfg.policy, visits, var, n_total, q_base,
-                                     rnd[:, depth])
+                                     rnd[:, depth], kept, vmax)
         low_mask = kept & (visits < cfg.low)
         any_low = low_mask.any(1, keepdim=True)
         neg = torch.tensor(-torch.inf, device=dev)
@@ -170,8 +178,6 @@ def select_walk(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):
     a CPU tree."""
     if not _on_cuda(trees.cbase):
         return select_walk_plain(trees, gumbels, rnd, cfg)
-    if cfg.policy not in POLICIES:
-        raise ValueError(f"select kernel: unknown or unported policy {cfg.policy!r}")
     B, N, M = _tree_checks(trees, cfg)
     D = cfg.max_depth
     _check("root", trees.root, torch.int32, (B,))
@@ -220,6 +226,13 @@ def insert_obs7(trees: T.Tree, packed7, end7, ok, cfg: T.TreeConfig):
             trees.tbl_obs, trees.n_obs, trees.obs_end, trees.obs_bits, obs7,
             B, Tsz, M)
     return obs7
+
+
+def insert_fn_for(cfg: T.TreeConfig):
+    """The insert every move program runs: `insert_obs7` (the kernel on a
+    card), or the plain `tree.insert_obs7_batched` where the configuration
+    turns the kernel off (`--insert_kernel 0`)."""
+    return insert_obs7 if cfg.insert_kernel else T.insert_obs7_batched
 
 
 # ---------------------------------------------------------------------------

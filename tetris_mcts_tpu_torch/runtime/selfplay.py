@@ -4,7 +4,9 @@
 `SelfPlayDriver` with the lp, leaf or rollout evaluator on the VV net, or a
 policy playout (hybrid, finite, full) on the VP net
 (`SelfPlayConfig.evaluator`); `VPSelfPlayDriver` the ApproxPolicyIter
-search (`search/vp.py`) with the VP net.
+search (`search/vp.py`) with the VP net; `DistSelfPlayDriver` the
+DistValueSim search (`search/distributional.py`) with the distributional
+net.
 
 B games play MCTS moves in lockstep; each move is one call of the move
 program (`search/mcts.make_move_fn`), which stays on the device and, in
@@ -33,7 +35,7 @@ The model is shared with the search: a session updates the net's params in
 place (and the VV model rescales `ubound`), and the next move's forward
 reads them. A session trains on the model's own columns of the ring:
 [states, value, variance, weight] for VV, [states, value, policy (7),
-weight] for VP. A
+weight] for VP, [states, target distribution (atoms), weight] for dist. A
 benchmark channel (`benchmark_every`) plays rounds of games on a twin
 driver in benchmark mode that shares the model. Metrics go to an optional
 `obs.metrics.MetricsWriter`.
@@ -63,18 +65,20 @@ from tetris_mcts_tpu_torch.env import engine
 from tetris_mcts_tpu_torch.env.engine import EnvConfig
 from tetris_mcts_tpu_torch.ops import env_packed as EP
 from tetris_mcts_tpu_torch.runtime import watchdog
+from tetris_mcts_tpu_torch.search import distributional as DD
 from tetris_mcts_tpu_torch.search import mcts
 from tetris_mcts_tpu_torch.search import tree as T
 from tetris_mcts_tpu_torch.search import vp as VP
 from tetris_mcts_tpu_torch.search.mcts import SearchConfig
 from tetris_mcts_tpu_torch.search.tree import TreeConfig
-from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
+from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
 
 
 class SelfPlayConfig(NamedTuple):
     batch: int = 64
     sims: int = 100
-    evaluator: str = "lp"  # mcts.EVALUATORS, or "vp" (VPSelfPlayDriver)
+    evaluator: str = "lp"  # mcts.EVALUATORS, "vp" (VPSelfPlayDriver) or
+                           # "dist" (DistSelfPlayDriver)
     max_nodes: int = 4096
     max_obs: int = 4096
     table_size: int = 8192
@@ -103,6 +107,9 @@ class SelfPlayConfig(NamedTuple):
     rollout_depth: int = 0         # policy-playout depth; 0 = the agent's
                                    # (HybridSim 30, FiniteSim 50, FullSim to the end)
     bf16: bool = False             # bfloat16 body in the search's forward
+    allow_clamp: bool = False      # accept pools too small for one move
+    select_kernel: bool = True     # False: the plain select walk (--select_kernel 0)
+    insert_kernel: bool = True     # False: the plain insert (--insert_kernel 0)
     checkpoint_each_train: bool = False  # save the model after each session
     dump_dir: str = ""             # write dump.npz of each session's set
     seed: int = 0
@@ -599,7 +606,14 @@ def tree_config(cfg: SelfPlayConfig) -> TreeConfig:
         max_nodes=cfg.max_nodes, max_obs=cfg.max_obs, table_size=cfg.table_size,
         max_depth=cfg.max_depth, gamma=cfg.gamma, policy=cfg.policy, low=cfg.low,
         env=EnvConfig(actions_per_drop=cfg.actions_per_drop, scoring=cfg.scoring,
-                      randomizer=cfg.randomizer))
+                      randomizer=cfg.randomizer),
+        select_kernel=cfg.select_kernel, insert_kernel=cfg.insert_kernel)
+
+
+def search_config(cfg: SelfPlayConfig, evaluator: str | None = None) -> SearchConfig:
+    """The search configuration of a self-play configuration."""
+    return SearchConfig(tree=tree_config(cfg), sims=cfg.sims,
+                        evaluator=evaluator or cfg.evaluator, allow_clamp=cfg.allow_clamp)
 
 
 class SelfPlayDriver(_OnlineDriverBase):
@@ -621,8 +635,8 @@ class SelfPlayDriver(_OnlineDriverBase):
         if model is None:
             model = (VPModel if playout else VVModel)(cfg.seed, self.device)
         self.model = model
-        self.search_cfg = SearchConfig(tree=tree_config(cfg), sims=cfg.sims,
-                                       evaluator=cfg.evaluator)
+        self.search_cfg = search_config(cfg)
+        mcts.log_plain_walks(self.log, self.search_cfg.tree)
         self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
         if cfg.evaluator == "lp":
@@ -683,7 +697,8 @@ class VPSelfPlayDriver(_OnlineDriverBase):
                  metrics=None, saver=None, status=None):
         self._init_bookkeeping(cfg, log, metrics, saver, status, device)
         self.model = model if model is not None else VPModel(cfg.seed, self.device)
-        self.search_cfg = SearchConfig(tree=tree_config(cfg), sims=cfg.sims, evaluator="vp")
+        self.search_cfg = search_config(cfg, "vp")
+        mcts.log_plain_walks(self.log, self.search_cfg.tree, ("insert",))
         self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         self._move = VP.make_vp_move_fn(
             self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None), self.search_cfg,
@@ -726,6 +741,66 @@ class VPSelfPlayDriver(_OnlineDriverBase):
     def _dump_training_data(self, data):
         """No training-set dump for the VP model (the reference dumps the VV
         model's only)."""
+
+
+class DistSelfPlayDriver(_OnlineDriverBase):
+    """The DistValueSim driver (the reference `DistSelfPlayDriver`): the C51
+    distributional search with online training of the distributional net
+    on the harvested target distributions, on the same host loop as
+    `SelfPlayDriver`. The support is [0, vmax] in `atoms` bins; the search's
+    low-visit threshold is cfg.low. Its randomness is a `mcts.TorchPlanes`
+    on the device seeded from cfg.seed."""
+
+    def __init__(self, cfg: SelfPlayConfig, model: DistModel | None = None,
+                 device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
+                 metrics=None, saver=None, status=None):
+        self._init_bookkeeping(cfg, log, metrics, saver, status, device)
+        self.model = model if model is not None else DistModel(seed=cfg.seed, device=self.device)
+        self.dcfg = DD.DistConfig(atoms=self.model.atoms, low=cfg.low)
+        self.search_cfg = search_config(cfg, "dist")
+        mcts.log_plain_walks(self.log, self.search_cfg.tree, ("insert",))
+        self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        self._move = DD.make_dist_move_fn(
+            self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None), self.search_cfg,
+            self.dcfg, self.planes, min_visits_store=cfg.min_visits_store,
+            store=not cfg.benchmark)
+        self.dtrees, self.envs = DD.init_dist_batch(cfg.seed, cfg.batch, self.search_cfg,
+                                                    self.dcfg, self.device)
+        self.replay = DD.init_dist_replay(cfg.memory_size, self.dcfg.atoms, self.device)
+
+    @property
+    def trees(self):
+        """The search trees without the distributions (`save_nodes`)."""
+        return self.dtrees.base
+
+    def _reinit_games(self, seed: int):
+        self.dtrees, self.envs = DD.init_dist_batch(seed, self.cfg.batch, self.search_cfg,
+                                                    self.dcfg, self.device)
+        self.planes.gen.manual_seed(seed)
+
+    def step(self):
+        """One batched move (B games advance one action each)."""
+        envs_prev = self.envs
+        self.envs, stats = self._move(self.dtrees, self.envs, self.replay)
+        return self._after_move(stats, envs_prev)
+
+    def _saver_extras(self, stats):
+        """Zeros for the saver's child_stats and variance, as the reference
+        saves for this search."""
+        B = stats.action.shape[0]
+        return (torch.zeros(B, 3, T.N_ACTIONS, device=self.device),
+                torch.zeros(B, device=self.device))
+
+    def _training_columns(self, order):
+        """[states int8 (n, 20, 10), target distribution (n, atoms), weight]
+        of the ring rows `order`, on the device."""
+        o = torch.as_tensor(order, device=self.device)
+        rep = self.replay
+        return [engine.unpack_obs(rep.boards[o]), rep.dist[o], rep.weight[o]]
+
+    def _dump_training_data(self, data):
+        """No training-set dump for the distributional model (the reference
+        dumps the VV model's only)."""
 
 
 def _host_read(parts):

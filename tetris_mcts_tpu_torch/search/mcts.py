@@ -29,6 +29,14 @@ leaf env (B, 44):
 A lane that did not expand (a terminal leaf, or no room) backs up
 (leaf score, 0) in the leaf and rollout modes.
 
+Each step runs its kernel unless the configuration says otherwise
+(`walk_routes`): `TreeConfig.select_kernel` / `insert_kernel` False (the
+CLI's `--select_kernel 0` / `--insert_kernel 0`) run that step's plain
+walk on the tree's device, and `--policy max` runs the plain select walk
+and the plain backups, which keep its `vmax` statistic (the reference runs
+its XLA walks there); the insert kernel stays. Nothing falls back on its
+own: a kernel that fails to build or launch raises.
+
 One move is `sims` simulations, the greedy root action, the real env step,
 the root advance, and the harvest-and-reset of every lane that is done,
 whose pool is full, or whose root could not be allocated: that lane's whole
@@ -58,6 +66,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
+import sys
+
 import torch
 
 from tetris_mcts_tpu_torch.env import engine
@@ -85,6 +95,8 @@ class SearchConfig(NamedTuple):
     evaluator: str = "lp"          # one of EVALUATORS
     rollout_cap: int = 512         # max playout length (rollout, full)
     rollout_variance: float = 1e3  # fixed rollout variance (Vanilla.py:54)
+    allow_clamp: bool = False      # accept pools too small for one move
+                                   # (a degraded search) instead of raising
 
 
 class MoveStats(NamedTuple):
@@ -105,7 +117,8 @@ class TorchPlanes:
     gumbels (B, D, 7), and normal (mc) or gumbel (random) per-child planes
     for those policies, zeros otherwise (`__call__`); the rollout's uniform
     action draws (`actions`), a policy playout's gumbels (`gumbels`), and
-    the VP select walk's uniforms (`uniforms`)."""
+    the VP select walk's uniforms (`uniforms`), and the distributional
+    select walk's gumbels (`level_gumbels`)."""
 
     def __init__(self, seed: int, device, policy: str = "clt"):
         self.gen = torch.Generator(device=device)
@@ -136,6 +149,11 @@ class TorchPlanes:
     def gumbels(self, B: int, step: int):
         """Gumbels (B, 7) for playout step `step` of a policy playout."""
         return self._gumbel((B, N_ACTIONS))
+
+    def level_gumbels(self, B: int, D: int):
+        """Gumbels (B, D, 7) of a select walk that draws nothing else (the
+        distributional search's)."""
+        return self._gumbel((B, D, N_ACTIONS))
 
     def uniforms(self, B: int, D: int):
         """Uniform [0, 1) draws (B, D) of the VP select walk, one a level."""
@@ -244,28 +262,61 @@ def playout_depth(cfg: SearchConfig, rollout_depth: int = 0) -> int:
     return rollout_depth or POLICY_PLAYOUTS[cfg.evaluator][0] or cfg.rollout_cap
 
 
+def walk_routes(tcfg: TreeConfig) -> dict:
+    """Which walk runs each step of a simulation, "kernel" or "plain": the
+    plain select or insert where the configuration turns the kernel off,
+    and the plain select and backups under `--policy max`."""
+    kernels_ok = tcfg.policy != "max"
+    return {"select": "kernel" if tcfg.select_kernel and kernels_ok else "plain",
+            "insert": "kernel" if tcfg.insert_kernel else "plain",
+            "backup": "kernel" if kernels_ok else "plain"}
+
+
+def log_plain_walks(log, tcfg: TreeConfig, steps=("select", "insert", "backup")):
+    """Say once, through `log`, which of `steps` run their plain walk and why."""
+    routes = walk_routes(tcfg)
+    plain = [s for s in steps if routes[s] == "plain"]
+    if plain:
+        why = []
+        if not tcfg.select_kernel and "select" in plain:
+            why.append("--select_kernel 0")
+        if not tcfg.insert_kernel and "insert" in plain:
+            why.append("--insert_kernel 0")
+        if tcfg.policy == "max":
+            why.append("--policy max keeps vmax in the plain walks")
+        log(f"plain walks (no kernel) for: {', '.join(plain)} ({'; '.join(why)})")
+
+
 def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
-    """`run(trees)`: cfg.sims simulations on B trees, in place."""
+    """`run(trees)`: cfg.sims simulations on B trees, in place, each step on
+    the route `walk_routes` gives."""
     tcfg = cfg.tree
     if cfg.evaluator not in EVALUATORS:
         raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
+    routes = walk_routes(tcfg)
+    select = (tree_walk.select_walk if routes["select"] == "kernel"
+              else tree_walk.select_walk_plain)
+    insert = tree_walk.insert_fn_for(tcfg)
+    kernel_backup = routes["backup"] == "kernel"
+    lp_backup = tree_walk.lp_backup if kernel_backup else tree_walk.lp_backup_plain
+    backup = tree_walk.backup if kernel_backup else T.backup_batched
 
     def sim_once(trees: Tree):
         B = trees.root.shape[0]
         gumbels, rnd = planes(B, tcfg.max_depth)
         (traces, lengths, leafs, leaf_env, packed7, child_sc7,
-         child_end7) = tree_walk.select_walk(trees, gumbels, rnd, tcfg)
+         child_end7) = select(trees, gumbels, rnd, tcfg)
         b = torch.arange(B, device=leafs.device)
         lc = leafs.long()
         childless = trees.cbase[b, lc] == 0
         can = ~trees.end[b, lc] & childless & T.headroom(trees, tcfg)
         end7 = child_end7 != 0
-        obs7 = tree_walk.insert_obs7(trees, packed7, end7, can, tcfg)
+        obs7 = insert(trees, packed7, end7, can, tcfg)
         T.expand_commit(trees, child_sc7, end7, obs7, leafs, can)
         v, var = evaluator(packed7, leaf_env)
         v, var = v.float().contiguous(), var.float().contiguous()
         if cfg.evaluator == "lp":
-            tree_walk.lp_backup(trees, traces, lengths, v, var, can, tcfg)
+            lp_backup(trees, traces, lengths, v, var, can, tcfg)
             return
         leaf_score = trees.nstat[b, 0, lc]
         # leaf: absolute value = leaf score + net value; the playouts: the
@@ -274,7 +325,7 @@ def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
         v0 = torch.where(can, leaf_score + v if cfg.evaluator == "leaf" else v,
                          leaf_score)
         var0 = torch.where(can, var, 0.0)
-        tree_walk.backup(trees, traces, lengths, v0, var0, tcfg)
+        backup(trees, traces, lengths, v0, var0, tcfg)
 
     def run(trees: Tree):
         for _ in range(cfg.sims):
@@ -283,18 +334,24 @@ def make_run_sims(evaluator: Callable, cfg: SearchConfig, planes: Callable):
     return run
 
 
-def capacity_guard_for(sims: int, tcfg: TreeConfig) -> int:
-    """Node headroom one full move needs; raises when the pools cannot hold
-    one move (the reference `capacity_guard_for`; its `allow_clamp` opt-in
-    to a degraded search is not ported)."""
+def capacity_guard_for(sims: int, tcfg: TreeConfig, allow_clamp: bool = False) -> int:
+    """Node headroom one full move needs (the reference `capacity_guard_for`):
+    min(need, max_nodes - 8, max_obs - 8). When the pools cannot hold one
+    move it raises, unless `allow_clamp` opts into the degraded search (the
+    trees harvest and reset every move, the sims past the pool expand
+    nothing), which it then warns of on stderr."""
     need = N_ACTIONS * (sims + 1) + 2
-    if need > min(tcfg.max_nodes, tcfg.max_obs) - N_ACTIONS - 1:
-        raise ValueError(
-            f"max_nodes={tcfg.max_nodes}/max_obs={tcfg.max_obs} cannot hold "
-            f"one {sims}-sim move (~{need} nodes): the tree would harvest+"
-            "reset every move and sims beyond the pool would expand nothing "
-            "— raise max_nodes/max_obs or lower sims")
-    return need
+    guard = min(need, tcfg.max_nodes - N_ACTIONS - 1, tcfg.max_obs - N_ACTIONS - 1)
+    if need > guard:
+        msg = (f"max_nodes={tcfg.max_nodes}/max_obs={tcfg.max_obs} cannot hold "
+               f"one {sims}-sim move (~{need} nodes): the tree would harvest+"
+               "reset every move and sims beyond the pool would expand nothing "
+               "— raise max_nodes/max_obs or lower sims")
+        if not allow_clamp:
+            raise ValueError(msg + " (or pass allow_clamp/--allow_clamp to accept the "
+                             "degraded search)")
+        print("warning: " + msg, file=sys.stderr, flush=True)
+    return guard
 
 
 def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes,
@@ -309,7 +366,7 @@ def make_move_fn(evaluator: Callable, cfg: SearchConfig, planes,
     (`planes.drop(shape)`)."""
     tcfg = cfg.tree
     run_sims = make_run_sims(evaluator, cfg, planes)
-    guard = capacity_guard_for(cfg.sims, tcfg)
+    guard = capacity_guard_for(cfg.sims, tcfg, cfg.allow_clamp)
     env_kw = T.env_kw(tcfg)
 
     def move(trees: Tree, envs, replay: "Replay | None" = None):

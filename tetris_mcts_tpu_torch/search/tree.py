@@ -14,7 +14,6 @@ Differences from the reference, all in representation only:
 - Ops update the tree in place, where the reference returns new arrays: the
   walk kernels write the (B, M) statistics and (B, T) tables in place, and
   a copy of the 34 MB tree state per simulation would buy nothing.
-- `--policy max` (and its `vmax` statistic) is not ported.
 
 Probing is linear (+1); the reference's `TMT_PROBE=double` mode is not
 ported. The single-key insert of `alloc_node` probes a window of
@@ -26,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tetris_mcts_tpu_torch.env.engine import EnvConfig
@@ -46,8 +46,10 @@ class TreeConfig(NamedTuple):
     max_depth: int = 96
     low: int = 1           # unvisited-first threshold (`check_low` n)
     gamma: float = 0.999   # backup discount
-    policy: str = "clt"    # clt | bayes | gauss | ucbv | mc | random | greedy
+    policy: str = "clt"    # clt | bayes | gauss | ucbv | max | mc | random | greedy
     env: EnvConfig = EnvConfig()
+    select_kernel: bool = True  # the select kernel, else the plain walk
+    insert_kernel: bool = True  # the insert kernel, else the plain insert
 
 
 @dataclass
@@ -69,6 +71,13 @@ class Tree:
     tbl_h2: torch.Tensor    # int32 (B, T) key lane 2 (u32 bits)
     tbl_obs: torch.Tensor   # int32 (B, T) obs id, 0 = empty
     root: torch.Tensor      # int32 (B,)
+    # float32 (B, M) the largest backed-up relative return per obs, which
+    # only `--policy max` tracks and reads; zeros when not given
+    vmax: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.vmax is None:
+            self.vmax = torch.zeros_like(self.values)
 
     def clone(self) -> "Tree":
         return Tree(**{f.name: getattr(self, f.name).clone()
@@ -394,10 +403,18 @@ def _kids_stats(trees: Tree, idx):
     return kids, sc, obs, kept
 
 
-def explore_bonus(policy: str, visits, var, n_total, q_base, rnd):
+def first_max(q):
+    """Index of the first maximum over the last axis (all -inf -> 0)."""
+    a7 = torch.arange(q.shape[-1], device=q.device)
+    return torch.where(q == q.max(-1, keepdim=True).values, a7, q.shape[-1]).amin(-1)
+
+
+def explore_bonus(policy: str, visits, var, n_total, q_base, rnd, kept=None,
+                  vmax_kids=None):
     """Exploration term of the selection rule (the reference
-    `tree.explore_bonus`; `max` is not ported). `rnd` is the per-child
-    randomness of the mc and random rules."""
+    `tree.explore_bonus`). `rnd` is the per-child randomness of the mc and
+    random rules; `max` (UCB1 scaled by the largest `vmax` of the kept
+    children) reads `kept` and `vmax_kids`."""
     nv = visits.clamp_min(1.0)
     if policy == "clt":
         return norm_quantile(n_total) * torch.sqrt(var / nv)
@@ -408,6 +425,9 @@ def explore_bonus(policy: str, visits, var, n_total, q_base, rnd):
         return norm_quantile(n_total) * torch.sqrt(var)
     if policy == "ucbv":
         return torch.sqrt(var * torch.log(n_total.clamp_min(2.0)))
+    if policy == "max":
+        q_max = torch.where(kept, vmax_kids, -torch.inf).amax(-1, keepdim=True)
+        return q_max * torch.sqrt(torch.log(n_total.clamp_min(2.0)) / nv)
     if policy == "mc":
         return rnd * torch.sqrt(var)
     if policy == "random":
@@ -455,22 +475,30 @@ def lp_seed(trees: Tree, traces, lengths, v_nn, var_nn, expanded,
     return v0, var0
 
 
-def backup_batched(trees: Tree, traces, lengths, v0, var0, cfg: TreeConfig):
-    """Reverse Welford+γ walk up every trace (`backup_trace_obs`, the
-    reference `backup_batched`): level t = length-1-k of every lane at step
-    k, strictly in order, since one trace can hold the same obs twice. A
-    first visit sets (v_rel, var0); later ones run the Welford update.
-    Updates visits/values/vars_ in place."""
-    gamma = float(cfg.gamma)
+def _levels(trees: Tree, traces, lengths):
+    """The steps of a reverse walk up every trace: step k yields (live (B,),
+    node score s (B,), obs o (B,) int64) of level length-1-k of every lane,
+    strictly in order, since one trace can hold the same obs twice. Lanes
+    past their root have live False and repeat their level 0."""
     b = _rows(lengths)
     lengths = lengths.long()
-    v = v0.float().clone()
     for k in range(int(lengths.max())):
         t = lengths - 1 - k
-        live = t >= 0
         idx = traces[b, t.clamp_min(0)].long()
-        s = trees.nstat[b, 0, idx]
-        o = trees.nstat[b, 1, idx].long()
+        yield t >= 0, trees.nstat[b, 0, idx], trees.nstat[b, 1, idx].long()
+
+
+def backup_batched(trees: Tree, traces, lengths, v0, var0, cfg: TreeConfig):
+    """Reverse Welford+γ walk up every trace (`backup_trace_obs`, the
+    reference `backup_batched`). A first visit sets (v_rel, var0); later
+    ones run the Welford update. Under `--policy max` it also keeps vmax[o]
+    = max(vmax[o], v_rel). Updates visits/values/vars_ (and vmax) in
+    place."""
+    gamma = float(cfg.gamma)
+    track_vmax = cfg.policy == "max"
+    b = _rows(lengths)
+    v = v0.float().clone()
+    for live, s, o in _levels(trees, traces, lengths):
         n, valo, varo = trees.visits[b, o], trees.values[b, o], trees.vars_[b, o]
         v_rel = v - s
         first = n == 0.0
@@ -481,7 +509,61 @@ def backup_batched(trees: Tree, traces, lengths, v0, var0, cfg: TreeConfig):
         trees.visits[b, o] = torch.where(live, n + 1.0, n)
         trees.values[b, o] = torch.where(live, val_new, valo)
         trees.vars_[b, o] = torch.where(live, var_new, varo)
+        if track_vmax:
+            vm = trees.vmax[b, o]
+            trees.vmax[b, o] = torch.where(live, torch.maximum(vm, v_rel), vm)
         v = torch.where(live, gamma * v_rel + s, v)
+
+
+def backup_exp_moving(trees: Tree, traces, lengths, v0, var0, cfg: TreeConfig,
+                      alpha: float = 0.1):
+    """The exponential-moving-average backup (`backup_trace_obs_exp_moving`,
+    the reference `backup_exp_moving`, batched): value += α·δ, var = (1-α)
+    (var + α·δ²); a first visit sets (v_rel, var0). No agent path runs it.
+    Updates visits/values/vars_ in place."""
+    gamma = float(cfg.gamma)
+    a = np.float32(alpha)
+    keep = float(np.float32(1.0) - a)  # (1 - α) in float32, as the reference
+    a = float(a)
+    b = _rows(lengths)
+    v = v0.float().clone()
+    for live, s, o in _levels(trees, traces, lengths):
+        n, valo, varo = trees.visits[b, o], trees.values[b, o], trees.vars_[b, o]
+        v_rel = v - s
+        first = n == 0.0
+        d = v_rel - valo
+        val_new = torch.where(first, v_rel, valo + a * d)
+        var_new = torch.where(first, var0, keep * (varo + a * d * d))
+        trees.visits[b, o] = torch.where(live, n + 1.0, n)
+        trees.values[b, o] = torch.where(live, val_new, valo)
+        trees.vars_[b, o] = torch.where(live, var_new, varo)
+        v = torch.where(live, gamma * v_rel + s, v)
+
+
+def backup_mixture(trees: Tree, traces, lengths, v0, var0, cfg: TreeConfig):
+    """The Gaussian-mixture backup (`backup_trace_mixture_obs`, the reference
+    `backup_mixture`, batched): each backup is a component, var += (Δvar +
+    Δ(v²))/n − (Δv/n)(v_old + v_new). The incoming variance decays by γ a
+    level, as in the reference's numba core (its C++ twin decays by γ²).
+    No agent path runs it. Updates visits/values/vars_ in place."""
+    gamma = float(cfg.gamma)
+    b = _rows(lengths)
+    v = v0.float().clone()
+    in_var = var0.float().clone()
+    for live, s, o in _levels(trees, traces, lengths):
+        n, valo, varo = trees.visits[b, o], trees.values[b, o], trees.vars_[b, o]
+        v_rel = v - s
+        n_new = n + 1.0
+        v_diff = v_rel - valo
+        v_sq_diff = v_rel * v_rel - valo * valo
+        val_new = valo + v_diff / n_new
+        var_new = varo + (in_var - varo + v_sq_diff) / n_new - (v_diff / n_new) * (
+            valo + val_new)
+        trees.visits[b, o] = torch.where(live, n_new, n)
+        trees.values[b, o] = torch.where(live, val_new, valo)
+        trees.vars_[b, o] = torch.where(live, var_new, varo)
+        v = torch.where(live, gamma * v_rel + s, v)
+        in_var = torch.where(live, gamma * in_var, in_var)
 
 
 # ---------------------------------------------------------------------------

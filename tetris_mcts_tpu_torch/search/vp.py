@@ -89,12 +89,6 @@ def _seq_sum(p):
     return s
 
 
-def _first_max(q):
-    """Index of the first maximum over the last axis (all -inf -> 0)."""
-    a7 = torch.arange(q.shape[-1], device=q.device)
-    return torch.where(q == q.max(-1, keepdim=True).values, a7, q.shape[-1]).amin(-1)
-
-
 # ---------------------------------------------------------------------------
 # selection
 # ---------------------------------------------------------------------------
@@ -178,7 +172,7 @@ def backup_value_policy_batched(vts: VPTree, traces, lengths, values, levels: in
         kobs = base.nstat[b[:, None], 1, kids].long().clamp_max(M - 1)
         q = torch.where(kids != 0, base.values[b[:, None], kobs] + ksc - s[:, None],
                         -torch.inf)
-        amax = _first_max(q)
+        amax = T.first_max(q)
         base.visits[b, o] = torch.where(live, new_visit, n)
         base.values[b, o] = torch.where(live, val_new, valo)
         vts.pol_new[b, amax, o] += live.float()
@@ -294,8 +288,9 @@ def make_vp_move_fn(apply_fn: Callable, cfg: mcts.SearchConfig, planes,
     place; envs are packed (B, 44) int32. `move.levels` holds the select
     levels of every simulation of the last move."""
     tcfg = cfg.tree
-    guard = mcts.capacity_guard_for(cfg.sims, tcfg)
+    guard = mcts.capacity_guard_for(cfg.sims, tcfg, cfg.allow_clamp)
     env_kw = T.env_kw(tcfg)
+    insert = tree_walk.insert_fn_for(tcfg)
 
     def sim_once(vts: VPTree):
         base = vts.base
@@ -314,7 +309,7 @@ def make_vp_move_fn(apply_fn: Callable, cfg: mcts.SearchConfig, planes,
         vts.prior[b, :, leaf_obs] = torch.where(can[:, None], p, vts.prior[b, :, leaf_obs])
 
         _, packed7, score7, end7 = T.expand_children(leaf_env, tcfg)
-        obs7 = tree_walk.insert_obs7(base, packed7.contiguous(), end7, can, tcfg)
+        obs7 = insert(base, packed7.contiguous(), end7, can, tcfg)
         T.expand_commit(base, score7, end7, obs7, leafs, can)
 
         leaf_score = base.nstat[b, 0, lc]

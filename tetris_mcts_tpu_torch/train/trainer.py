@@ -1,6 +1,6 @@
-"""The VV and VP models: nets, inference, training and checkpoints
-(counterpart of the reference package's `train/trainer.py` `VVModel` and
-`VPModel`).
+"""The VV, VP and distributional models: nets, inference, training and
+checkpoints (counterpart of the reference package's `train/trainer.py`
+`VVModel`, `VPModel` and `DistModel`).
 
 Holds the VV net and its output bounds (`ubound` = [100, 1000] and
 `lbound` = [0, 0.1] at the start, as the reference sets them), builds the
@@ -31,13 +31,20 @@ policy KL (`models/losses.py`), weighted, with Adam-amsgrad at lr 1e-4
 (`train/optim.AdamAmsgrad`); its session is the same loop
 (`_early_stop_fit`) without the VV model's grad-norm watch and bounds.
 
+`DistModel` holds the distributional net (`models/nets.DistNet`, `atoms`
+bins) and trains it on target distributions with the reference's
+semantics: the categorical cross-entropy, weighted, with Yogi at lr 1e-3
+(weight decay 1e-3), on the same session loop, without a grad-norm watch.
+
 Checkpoints: `save` writes `torch.save` of the net's state dict, the
 optimizer state (and the VV bounds) (defaults `DEFAULT_CKPT`,
 `VP_DEFAULT_CKPT`); `load` reads it back, and reads a checkpoint of the
 JAX package too (a pickle of flax msgpack bytes, read without flax by
 `train/flax_msgpack.py`), converted by `params_from_jax` +
-`opt_state_from_jax` (VV) or `vp_params_from_jax` + `vp_opt_state_from_jax`
-(VP). `save` never overwrites a file that is not the port's.
+`opt_state_from_jax` (VV), `vp_params_from_jax` + `vp_opt_state_from_jax`
+(VP) or `dist_params_from_jax` + `dist_opt_state_from_jax` (dist). `save`
+never overwrites a file that is not the port's, and each model's `load`
+refuses another model's checkpoint.
 """
 
 from __future__ import annotations
@@ -51,13 +58,14 @@ import numpy as np
 import torch
 
 from tetris_mcts_tpu_torch.models import losses as L
-from tetris_mcts_tpu_torch.models.nets import VPNet, VVNet, tf32_off
+from tetris_mcts_tpu_torch.models.nets import DistNet, VPNet, VVNet, tf32_off
 from tetris_mcts_tpu_torch.train import flax_msgpack
 from tetris_mcts_tpu_torch.train.optim import AMS_LR, AdamAmsgrad, Yogi
 
 VARIANCE_BOUND = L.VARIANCE_BOUND  # reference `variance_bound`
 DEFAULT_CKPT = "./checkpoints/model_vv_torch.pt"
 VP_DEFAULT_CKPT = "./checkpoints/model_vp_torch.pt"
+DIST_DEFAULT_CKPT = "./checkpoints/model_dist_torch.pt"
 
 
 def _f32(x):
@@ -84,7 +92,8 @@ def _dense(sd, p, name, hwc=None):
 
 
 def _state_from_flax(p):
-    """flax VV param tree (numpy) -> VVNet state dict (torch, float32)."""
+    """flax VV or Dist param tree (numpy) -> VVNet / DistNet state dict
+    (torch, float32): the two nets share their layer names and layout."""
     p = p.get("params", p)
     sd = {}
     for i in (1, 2, 3):
@@ -115,6 +124,12 @@ def params_from_jax(params_np, ubound, lbound):
     top-level "params" key) -> (state_dict, ubound, lbound) for `VVNet`."""
     as_t = lambda x: torch.from_numpy(np.array(x, np.float32))
     return _state_from_flax(params_np), as_t(ubound), as_t(lbound)
+
+
+def dist_params_from_jax(params_np):
+    """flax DistNet params (nested dict of numpy arrays) -> `DistNet` state
+    dict."""
+    return _state_from_flax(params_np)
 
 
 def vp_params_from_jax(params_np):
@@ -151,6 +166,10 @@ def opt_state_from_jax(opt_state_np):
     return _state_from_flax(st["mu"]), _state_from_flax(st["nu"]), int(np.asarray(st["count"]))
 
 
+# the DistModel's Yogi chain is the VV model's, on a net of the same layout
+dist_opt_state_from_jax = opt_state_from_jax
+
+
 def vp_opt_state_from_jax(opt_state_np):
     """The reference's Adam-amsgrad state (`ScaleByAmsgradState`, or its
     flax state dict) -> (mu, nu, nu_max state dicts in `VPNet`'s layout,
@@ -164,15 +183,17 @@ def vp_opt_state_from_jax(opt_state_np):
 
 def _read_jax(path: str, kind: str):
     """The JAX package's checkpoint at `path` (flax_msgpack), checked to be
-    of the `kind` net ("vv": conv3 and fc1; "vp": the norms and heads)."""
+    of the `kind` net ("vv": conv3, fc1 and the bounds; "dist": conv3 and
+    fc1 without bounds; "vp": the norms and heads)."""
     try:
         blob = flax_msgpack.read_jax_checkpoint(path)
     except (ValueError, pickle.UnpicklingError, EOFError) as e:
         raise ValueError(f"{path} is neither a checkpoint of the port (torch.save) nor "
                          f"one of the JAX package ({e})") from e
     p = blob["params"].get("params", blob["params"])
-    want = {"vv": ("conv3", "fc1", "fc_out"), "vp": ("norm1", "fc_v", "policy")}[kind]
-    if not all(k in p for k in want):
+    want = {"vv": ("conv3", "fc1", "fc_out"), "dist": ("conv3", "fc1", "fc_out"),
+            "vp": ("norm1", "fc_v", "policy")}[kind]
+    if not all(k in p for k in want) or (kind != "vp" and ("ubound" in blob) != (kind == "vv")):
         raise ValueError(f"{path} is a JAX checkpoint of another net (params "
                          f"{sorted(p)}), not of the {kind} net")
     return blob
@@ -530,6 +551,9 @@ class VVModel:
             self.load_opt_state(*opt_state_from_jax(blob["opt_state"]))
         else:
             blob = torch.load(path, map_location=self.device, weights_only=True)
+            if "ubound" not in blob:
+                raise ValueError(f"{path} is a checkpoint of another of the port's nets, not "
+                                 "of the VV net")
             self.load_state(blob["net"], blob["ubound"], blob["lbound"])
             self.load_opt_state(blob["yogi_mu"], blob["yogi_nu"], blob["yogi_count"])
         self._ubound_floor = self.ubound.clone()
@@ -673,8 +697,136 @@ class VPModel:
         else:
             blob = torch.load(path, map_location=self.device, weights_only=True)
             if "ams_mu" not in blob:
-                raise ValueError(f"{path} is a checkpoint of the port's VV net, not of the VP net")
+                raise ValueError(f"{path} is a checkpoint of another of the port's nets, not "
+                                 "of the VP net")
             self.load_state(blob["net"])
             self.load_opt_state(blob["ams_mu"], blob["ams_nu"], blob["ams_nu_max"],
                                 blob["ams_count"])
+        return True
+
+
+class DistModel:
+    """The distributional net (`atoms` bins) on `device`, with Yogi training
+    (the reference `DistModel`): the per-sample loss is weight *
+    categorical_ce(net(states), target); `weighted` sessions weight by the
+    weight column normalised to mean 1, else by ones."""
+
+    def __init__(self, atoms: int = 50, seed: int = 0, device="cuda",
+                 checkpoint_path: str = DIST_DEFAULT_CKPT, index_source=None,
+                 lr: float = 1e-3, weighted: bool = True):
+        self.device = torch.device(device)
+        self.atoms = atoms
+        self.net = DistNet(atoms, seed=seed).to(self.device)
+        self.weighted = weighted
+        self.checkpoint_path = checkpoint_path
+        self.names = [n for n, _ in self.net.named_parameters()]
+        self.opt = Yogi(self.net.parameters(), lr=lr)
+        self._rng = np.random.RandomState(seed + 1)
+        self.index_source = index_source or TorchIndexSource(self.device)
+
+    def _params_copy(self):
+        return {n: p.detach().clone() for n, p in self.net.named_parameters()}
+
+    def load_state(self, state_dict):
+        self.net.load_state_dict(state_dict)
+
+    def load_opt_state(self, mu, nu, count: int):
+        """Set the Yogi state from state dicts of mu and nu (and the count)."""
+        self.opt.load([mu[n] for n in self.names], [nu[n] for n in self.names], count)
+
+    # ---------------------------------------------------------- inference
+    def apply_fn(self, compute_dtype=None):
+        """imgs (n, 1, 20, 10) -> (n, atoms) probabilities. `compute_dtype`
+        (torch.bfloat16 for --bf16) applies to this closure only."""
+
+        @torch.no_grad()
+        def f(imgs):
+            return self.net(imgs.to(self.device), compute_dtype)
+
+        return f
+
+    def inference(self, boards):
+        """boards (N, 20, 10) or (N, 1, 20, 10) -> (N, atoms) numpy array."""
+        return self.apply_fn()(_boards(boards, self.device)).cpu().numpy()
+
+    # ----------------------------------------------------------- training
+    def per_sample_loss(self, states, target, weight):
+        return weight * L.categorical_ce(self.net(states), target)
+
+    def loss_and_grads(self, batch):
+        """(loss, per-sample losses, grads in `names` order) of one batch
+        (states, target distributions, weight)."""
+        params = list(self.net.parameters())
+        with tf32_off():
+            per = self.per_sample_loss(*batch)
+            loss = per.mean()
+            grads = torch.autograd.grad(loss, params)
+        return loss.detach(), per.detach(), grads
+
+    def train_step(self, data, idx):
+        """One Yogi step on the rows `idx` of data (states, target, weight).
+        Returns (loss, per-sample losses, global grad norm) on the device."""
+        loss, per, grads = self.loss_and_grads(tuple(d[idx] for d in data))
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self.opt.step(grads)
+        return loss, per, gnorm
+
+    @torch.no_grad()
+    def eval_loss(self, data):
+        """(mean, std) of the per-sample loss over data, device scalars."""
+        with tf32_off():
+            per = self.per_sample_loss(*data)
+        return per.mean(), per.std(correction=0)
+
+    def train_data(self, data, batch_size: int = 128, iters_per_val: int = 500,
+                   validation_fraction: float = 0.1, validation_rows: int | None = None,
+                   early_stopping: bool = True, early_stopping_patience: int = 10,
+                   early_stopping_threshold: float = 1.0, shuffle: bool = False,
+                   min_iters: int = 0, max_iters: int = 100000, log=print):
+        """One training session over data = [states, target distributions
+        (N, atoms), weights]. Returns the history, a list of (iteration,
+        train loss, val loss, val std) a window."""
+        dev = self.device
+        weight = _col(data[2], dev)
+        weight = weight / weight.mean() if self.weighted else torch.ones_like(weight)
+        cols = (_boards(data[0], dev),
+                torch.as_tensor(data[1], device=dev).float().reshape(-1, self.atoms), weight)
+        return _early_stop_fit(
+            self, cols, self.train_step, batch_size=batch_size,
+            iters_per_val=iters_per_val, validation_fraction=validation_fraction,
+            validation_rows=validation_rows, early_stopping=early_stopping,
+            early_stopping_patience=early_stopping_patience,
+            early_stopping_threshold=early_stopping_threshold, shuffle=shuffle,
+            min_iters=min_iters, max_iters=max_iters, log=log)
+
+    # --------------------------------------------------------- persistence
+    def save(self, path: str | None = None, verbose: bool = False):
+        """Write the net's params and the Yogi state to `path` (`torch.save`,
+        through a temporary file). Refuses to overwrite a file that is not a
+        checkpoint of the port."""
+        mu, nu, count = self.opt.state()
+        cpu = lambda xs: {n: x.detach().cpu() for n, x in zip(self.names, xs)}
+        _save_torch(path or self.checkpoint_path,
+                    {"net": cpu(self.net.parameters()), "yogi_mu": cpu(mu),
+                     "yogi_nu": cpu(nu), "yogi_count": count, "atoms": self.atoms}, verbose)
+
+    def load(self, path: str | None = None):
+        """Read a checkpoint written by `save`, or a distributional checkpoint
+        of the JAX package (converted). Returns False when the file does not
+        exist."""
+        path = path or self.checkpoint_path
+        if not os.path.isfile(path):
+            print("Checkpoint not found, using default model", flush=True)
+            return False
+        if not zipfile.is_zipfile(path):
+            blob = _read_jax(path, "dist")
+            self.load_state(dist_params_from_jax(blob["params"]))
+            self.load_opt_state(*dist_opt_state_from_jax(blob["opt_state"]))
+        else:
+            blob = torch.load(path, map_location=self.device, weights_only=True)
+            if "atoms" not in blob:
+                raise ValueError(f"{path} is a checkpoint of another of the port's nets, not "
+                                 "of the distributional net")
+            self.load_state(blob["net"])
+            self.load_opt_state(blob["yogi_mu"], blob["yogi_nu"], blob["yogi_count"])
         return True
