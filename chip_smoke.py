@@ -72,28 +72,46 @@ of the JAX package. Phases, each printing its elapsed seconds:
    --benchmark --load_model` for 5 moves (500 launches of each walk) must
    give outputs on fixed boards that differ from the seed net's; then
    `cycle --dry_run --iters 2` prints its plan;
-12-13. vp, vp online: ApproxPolicyIter frozen (3 moves; only the insert
-   kernel launches) and online until a session (train_rows 500,
-   train_max_iters 500), a VP train step on the card against the CPU;
+12-13. vp, vp online: ApproxPolicyIter frozen (1 move after a warm-up;
+   only the insert kernel launches) and online until a session
+   (train_rows 500, train_max_iters 500), a VP train step on the card
+   against the CPU;
 14. playouts: HybridSim at 4 sims for 2 moves;
 15. trained: 5 lp moves through `play --load_model` on the repo's JAX
    checkpoint, the loaded net on the card against the CPU;
 16. dist: DistValueSim frozen at the CLI's width (50 atoms on [0, 1000],
-   low 5) for 3 moves after a warm-up: only the insert kernel launches,
-   300 times; every visited obs's distribution sums to 1; two profiled
+   low 5) for 1 move after a warm-up: only the insert kernel launches,
+   100 times; every visited obs's distribution sums to 1; two profiled
    moves of a 4-sim twin, scaled;
 17. dist online: DistValueSim with training (cuts: train_rows 500,
-   train_max_iters 500) until a session and 2 moves more: the stored
+   train_max_iters 500) until the move whose session ran: the stored
    target rows sum to 1 within 1e-3; a DistModel train step's device time
    and launches, and the step on the card against the CPU (TF32 on around
    it);
-18. surface: at the CLI's width with 20 sims (cut from 100), 5 lp moves
+18. surface: at the CLI's width with 20 sims (cut from 100), 2 lp moves
    with both kernels, with `--select_kernel 0` and with `--insert_kernel
    0` (each bit-equal to the kernels' run in actions, every tree array and
    a select walk's traces), and under `--policy max` (only the insert
    kernel launches). The small phase also holds the dist move, an lp max
    move (vmax too) and `backup_exp_moving` / `backup_mixture` on the card
-   against the CPU.
+   against the CPU;
+19. s2: ValueSim2 frozen at the CLI's width for 2 moves after a warm-up:
+   only the insert kernel launches, 200 times; edges are recorded; two
+   profiled moves of a 4-sim twin, scaled. The small phase holds 3 S2
+   moves (B=4, pools of 128, a harvest and a reset) on the card against
+   the CPU: integers, visits and the edge tables equal, values, vars and
+   max_ret within rtol 1e-6 / atol 1e-5;
+20-21. dqn, distdqn: `play --agent_type DQN` / `DistDQN` at the CLI's
+   defaults (B=64, ring 100000, minibatch 32, target sync every 100) for
+   300 moves with training through the CLI main (no walk kernel launches;
+   every move trains; the checkpoint is written), a step's device time and
+   launches, then 100 moves of `play --benchmark --load_model` (the saved
+   net, greedy, nothing trained or stored). The small phase holds 10 steps
+   of each head on the card against the CPU with shared draws (actions,
+   envs and the ring equal, losses within rtol 1e-5), then one update in
+   parts (loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5 x the largest on
+   a minibatch both devices agree on at every ReLU, Adam fed the card's
+   gradients rtol 1e-6 / atol 1e-7).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the `kernels` line gives each kernel's launches summed over the
@@ -122,21 +140,26 @@ PROFILER_SESSIONS = 5  # device_ms's most sessions; each kernel row reports how 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 FP32_FLOPS = 67e12         # H100 SXM published float32 rate outside the tensor cores
 MOVES = 20
-VP_MOVES = 3             # the vp phase's moves at the CLI width
+VP_MOVES = 1             # the vp phase's moves at the CLI width, after a warm-up
 VP_PROFILE_SIMS = 4      # the vp profile's cut of the sims (a move issues ~330k
                          # kernels at 100 sims; profiling two took 486 s on the H100)
 VP_ONLINE_ROWS = 500     # the vp online phase's cut of --train_rows (CLI: 5000)
 VP_ONLINE_ITERS = 500    # ... and of --train_max_iters (CLI: 50000)
 VP_ONLINE_MOVE_CAP = 30
+VP_ONLINE_AFTER = 0      # moves after the first session, on the trained net
 TRAINED_CKPT = "checkpoints/model_vv.msgpack"  # the JAX package's trained VV net
 PLAYOUT_MOVES, PLAYOUT_SIMS = 2, 4
-DIST_MOVES = 3             # the dist phase's moves at the CLI width
+DIST_MOVES = 1             # the dist phase's moves at the CLI width, after a warm-up
 DIST_PROFILE_SIMS = 4      # the dist profile's cut of the sims (as vp's)
 DIST_ONLINE_ROWS = 500     # the dist online phase's cut of --train_rows (CLI: 5000)
 DIST_ONLINE_ITERS = 500    # ... and of --train_max_iters (CLI: 50000)
 DIST_ONLINE_MOVE_CAP = 30
-DIST_ONLINE_AFTER = 1      # moves after the first session, on the trained net (~11 s each)
-SURFACE_MOVES, SURFACE_SIMS = 5, 20  # the surface phase's lp runs (sims cut from 100)
+DIST_ONLINE_AFTER = 0      # moves after the first session, on the trained net (~11 s each)
+SURFACE_MOVES, SURFACE_SIMS = 2, 20  # the surface phase's lp runs (sims cut from 100)
+S2_MOVES = 2               # the s2 phase's moves at the CLI width, after a warm-up
+S2_PROFILE_SIMS = 4        # the s2 profile's cut of the sims (as vp's and dist's)
+DQN_MOVES = 300            # the dqn phases' moves of `play` with training
+DQN_BENCH_MOVES = 100      # ... and of `play --benchmark --load_model`
 # a stand-in for the VP net: logits s x STUB_LOGIT from the board's cell sum s
 STUB_LOGIT = (0.3, -0.2, 0.11, 0.05, -0.07, 0.17, -0.02)
 # each path's kernel launches, recorded as the path runs (the kernels line)
@@ -447,6 +470,111 @@ def phase_small_backups(torch, mcts, T):
     return err
 
 
+def phase_small_s2(torch, mcts, T):
+    """The ValueSim2 move program on the card (insert kernel) against the
+    CPU, with the linspace stub net, 3 moves at B=4 (pools of 128: the
+    second move harvests, stores and resets every tree): actions,
+    edge-count policies, env states, the trees' integer arrays, visits, the
+    edge tables and the ring's boards and weights equal; values, vars,
+    max_ret and the ring's values and variances within rtol 1e-6 / atol
+    1e-5."""
+    from tetris_mcts_tpu_torch.search import stochastic as ST
+
+    scfg = mcts.SearchConfig(tree=T.TreeConfig(max_nodes=128, max_obs=128, table_size=256,
+                                               max_depth=16), sims=8)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        move = ST.make_s2_move_fn(stub_evaluator, scfg, min_visits_store=1)
+        s2, envs = ST.init_s2_batch(7, 4, scfg, device=dev)
+        rep = mcts.init_replay(256, dev)
+        out = []
+        for _ in range(3):
+            envs, st = move(s2, envs, rep)
+            out.append(torch.stack([st.action.float(), *st.probs.T]))
+        results[dev] = (torch.stack(out), s2, envs, rep)
+    gm, gt, ge, grep = results["cuda"]
+    cm, ct, ce, crep = results["cpu"]
+    close("small[s2] actions and edge-count policies", gm, cm, True)
+    close("small[s2] envs", ge, ce, True)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits",
+              "tbl_h1", "tbl_h2", "tbl_obs", "root"):
+        close(f"small[s2] {f}", getattr(gt.base, f), getattr(ct.base, f), True)
+    for f in ("edge_child", "edge_count", "edge_dscore"):
+        close(f"small[s2] {f}", getattr(gt, f), getattr(ct, f), True)
+    if not float(gt.edge_count.sum()) > 0 or int(grep.total) == 0 or int(grep.total) != int(
+            crep.total):
+        raise AssertionError("small[s2]: no edge recorded or nothing stored, or the rings' "
+                             "counts differ")
+    gb, gv, gvar, gw = grep.rows()
+    cb, cv, cvar, cw = crep.rows()
+    close("small[s2] ring boards", gb, cb, True)
+    close("small[s2] ring weights", gw, cw, True)
+    return max(close("small[s2] values", gt.base.values, ct.base.values, False),
+               close("small[s2] vars", gt.base.vars_, ct.base.vars_, False),
+               close("small[s2] max_ret", gt.max_ret, ct.max_ret, False),
+               close("small[s2] ring values", gv, cv, False),
+               close("small[s2] ring vars", gvar, cvar, False))
+
+
+def phase_small_dqn(torch, distributional):
+    """10 steps of the DQN agent (B=8, a ring of 64 rows that wraps,
+    minibatch 16, target sync every 4) on the card against the CPU from the
+    same weights, fed the same draws: actions, env states and the ring
+    equal every step, the losses within rtol 1e-5 / atol 1e-7. Then one
+    update of the card's state against the CPU's on a minibatch both
+    devices agree on at every ReLU (`dqn_update_on_two_devices`): the loss
+    within rtol 1e-5, the gradients within rtol 1e-4 / atol 1e-5 x each
+    tensor's largest, and Adam on the CPU fed the card's gradients within
+    rtol 1e-6 / atol 1e-7 of the card's step. (The nets are not compared
+    after the 10 steps: Adam turns a gradient's rounding difference near
+    zero into an update of up to its learning rate.) Returns the float max
+    abs err."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.runtime import dqn as D
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_train_cases import dqn_update_on_two_devices
+
+    cfg = D.DQNConfig(batch=8, memory_size=64, train_batch=16, target_update_steps=4, seed=3,
+                      distributional=distributional)
+    rng = np.random.RandomState(6)
+    steps = 10
+    draws = [(rng.rand(cfg.batch).astype(np.float32), rng.randint(0, 7, cfg.batch),
+              rng.randint(0, min((k + 1) * cfg.batch, cfg.memory_size), cfg.train_batch))
+             for k in range(steps)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        d = D.DQNDriver(cfg, device=dev, log=lambda s: None)
+        feed = iter(draws)
+        d.draws = lambda feed=feed, dev=dev: D.DQNDraws(
+            *(torch.as_tensor(x, device=dev) for x in next(feed)))
+        out = [(st.action, st.loss, d.envs, *(a.clone() for a in d.replay.arrays()))
+               for st in (d.step() for _ in range(steps))]
+        runs[dev] = (d, out)
+    (g, gout), (c, cout) = runs["cuda"], runs["cpu"]
+    name = "distdqn" if distributional else "dqn"
+    err = 0.0
+    for k, (go, co) in enumerate(zip(gout, cout)):
+        close(f"small[{name}] step {k} actions", go[0], co[0], True)
+        err = max(err, close(f"small[{name}] step {k} loss", go[1], co[1], False, 1e-5, 1e-7))
+        for n, a, b in zip(("envs", "si", "a", "r", "sf", "end"), go[2:], co[2:]):
+            close(f"small[{name}] step {k} {n}", a, b, True)
+    if not (g.updates == c.updates == steps and g.episodes == c.episodes):
+        raise AssertionError(f"small[{name}]: the drivers' counters differ")
+    up = dqn_update_on_two_devices(g)
+    err = max(err, close(f"small[{name}] update loss", up["card"][0], up["cpu"][0], False,
+                         1e-5, 0.0))
+    for n, a, b in zip(g.names, up["card"][1], up["cpu"][1]):
+        err = max(err, close(f"small[{name}] update grad {n}", a, b, False, 1e-4,
+                             1e-5 * float(b.abs().max())))
+    for n, a, b in zip(g.names, *up["params"]):
+        err = max(err, close(f"small[{name}] Adam step {n}", a, b, False, 1e-6, 1e-7))
+    return err
+
+
 def phase_net(torch):
     """The VV net's float32 forward on the card against the CPU, same
     weights (from seed 5), on 448 random boards (one sim's 64 x 7 children)."""
@@ -666,12 +794,12 @@ def report_episode(driver, episodes):
             f"Lines Cleared:{int(st.lines[0]):5d}")
 
 
-def report_profile(torch, driver, wall, moves, label, scale=1.0, cuda_only=False):
+def report_profile(torch, driver, wall, moves, label, scale=1.0):
     """Two profiled moves of `driver`: device time by kernel against the
     wall time a move of the unprofiled run. `scale` multiplies the profiled
     moves' times and launches (a twin with fewer sims, scaled to the run's)."""
     t = time.perf_counter()
-    busy_ms, prof_rows = profile_moves(torch, driver, 2, cuda_only)
+    busy_ms, prof_rows = profile_moves(torch, driver, 2)
     busy_ms *= scale
     per_move_ms = wall / moves * 1e3
     say(f"phase profile ({label}): device kernel time {busy_ms / 2:.2f} ms per move "
@@ -730,6 +858,9 @@ def main() -> int:
     small_err["lp, max"] = phase_small(torch, mcts, T, "lp", policy="max")
     small_err["dist"] = phase_small_dist(torch, mcts, T)
     small_err["backup_exp_moving, backup_mixture"] = phase_small_backups(torch, mcts, T)
+    small_err["s2"] = phase_small_s2(torch, mcts, T)
+    small_err["dqn, 10 steps"] = phase_small_dqn(torch, False)
+    small_err["distdqn, 10 steps"] = phase_small_dqn(torch, True)
     net_err = phase_net(torch)
     vp_net_err = phase_net_vp(torch)
     say(f"phase small: 3 moves x 8 sims (4 for the playouts) at B=4 equal on cuda and cpu "
@@ -1033,6 +1164,13 @@ def main() -> int:
 
     # ---- 18. the VV surface: --policy max, --select_kernel 0, --insert_kernel 0 --
     phase_surface(torch, smi)
+
+    # ---- 19. ValueSim2 ---------------------------------------------------------
+    phase_s2(torch, smi)
+
+    # ---- 20-21. DQN and DistDQN --------------------------------------------------
+    phase_dqn(torch, smi, "DQN")
+    phase_dqn(torch, smi, "DistDQN")
 
     def by_path(name):
         return {p: c[name] for p, c in PATH_LAUNCHES.items() if c.get(name)}
@@ -1492,13 +1630,14 @@ def phase_vp(torch, smi):
     twin.step()  # warm-up
     torch.cuda.synchronize()
     report_profile(torch, twin, wall, VP_MOVES, f"vp, {VP_PROFILE_SIMS} sims a move scaled "
-                   f"to {cfg.sims}", scale=cfg.sims / VP_PROFILE_SIMS, cuda_only=True)
+                   f"to {cfg.sims}", scale=cfg.sims / VP_PROFILE_SIMS)
 
 
 def phase_vp_online(torch, smi):
     """ApproxPolicyIter with training at the CLI's width until a session has
-    run and 2 moves more; then one VP train step on the card against the
-    CPU with TF32 switched on around it, and a step's device time."""
+    run and VP_ONLINE_AFTER moves more; then one VP train step on the card
+    against the CPU with TF32 switched on around it, and a step's device
+    time."""
     import tempfile
     from pathlib import Path
 
@@ -1532,7 +1671,7 @@ def phase_vp_online(torch, smi):
             moves += 1
             if session_move is None and driver.n_trains:
                 session_move = moves
-            if session_move is not None and moves - session_move >= 2:
+            if session_move is not None and moves - session_move >= VP_ONLINE_AFTER:
                 break
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
@@ -1704,12 +1843,13 @@ def phase_dist(torch, smi):
     twin.step()  # warm-up
     torch.cuda.synchronize()
     report_profile(torch, twin, wall, DIST_MOVES, f"dist, {DIST_PROFILE_SIMS} sims a move "
-                   f"scaled to {cfg.sims}", scale=cfg.sims / DIST_PROFILE_SIMS, cuda_only=True)
+                   f"scaled to {cfg.sims}", scale=cfg.sims / DIST_PROFILE_SIMS)
 
 
 def phase_dist_online(torch, smi):
     """DistValueSim with training at the CLI's width until a session has run
-    and one move more on the trained net: the stored target rows sum to 1;
+    and DIST_ONLINE_AFTER moves more on the trained net: the stored target
+    rows sum to 1;
     then one DistModel
     train step on the card against the CPU with TF32 switched on around it,
     and a step's device time."""
@@ -1892,6 +2032,104 @@ def phase_surface(torch, smi):
         f"sims cut to {SURFACE_SIMS} from 100); in {time.perf_counter() - t:.1f}s")
 
 
+def phase_s2(torch, smi):
+    """ValueSim2 with a frozen net at the CLI's width: the insert walk
+    launches moves x sims times, no other walk launches; edges are recorded
+    and every root policy is a distribution; then two profiled moves of an
+    S2_PROFILE_SIMS-sim twin, scaled to the run's sims."""
+    from tetris_mcts_tpu_torch.runtime.selfplay import S2SelfPlayDriver, SelfPlayConfig
+
+    t = time.perf_counter()
+    cfg = SelfPlayConfig(benchmark=True, evaluator="s2")
+    driver, wall, launches = drive(torch, cfg, S2_MOVES, lambda s: None, S2SelfPlayDriver)
+    record("s2", launches)
+    check_launches("s2 path", launches, {"insert7_walk": S2_MOVES * cfg.sims})
+    levels = driver._move.levels
+    s2 = driver.s2trees
+    if not (float(s2.edge_count.sum()) > 0 and bool(torch.isfinite(s2.max_ret).all())):
+        raise AssertionError("s2 path: no edge recorded, or a non-finite max_ret")
+    say(f"phase s2 (ValueSim2, frozen): {S2_MOVES} moves x {cfg.sims} sims at B={cfg.batch} "
+        f"in {wall:.2f}s: {wall / S2_MOVES * 1e3:.1f} ms wall a move, "
+        f"{S2_MOVES * cfg.batch * cfg.sims / wall:.1f} sims/s ({smi}); launches {launches}; "
+        f"select levels a sim in the last move: mean {sum(levels) / len(levels):.2f}, max "
+        f"{max(levels)}; mean nodes {s2.base.n_nodes.float().mean().item():.0f}; "
+        f"{int((s2.edge_child > 0).sum())} edge slots in use, "
+        f"{int((s2.edge_child > 0).sum(-1).max())} children at most on one edge")
+    say(f"phase s2 took {time.perf_counter() - t:.1f}s")
+    twin = S2SelfPlayDriver(cfg._replace(sims=S2_PROFILE_SIMS), device="cuda",
+                            log=lambda s: None)
+    twin.step()  # warm-up
+    torch.cuda.synchronize()
+    report_profile(torch, twin, wall, S2_MOVES, f"s2, {S2_PROFILE_SIMS} sims a move "
+                   f"scaled to {cfg.sims}", scale=cfg.sims / S2_PROFILE_SIMS)
+
+
+def phase_dqn(torch, smi, agent):
+    """`play --agent_type agent` (DQN or DistDQN) at the CLI's defaults (B=64,
+    ring 100000, minibatch 32, target sync every 100) for DQN_MOVES moves
+    with training, through the CLI main in process: no walk kernel
+    launches, every move trains, the checkpoint is written; a train step's
+    device time and launches; then DQN_BENCH_MOVES moves of `play
+    --benchmark --load_model`, which play the saved net greedily and write
+    nothing."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tetris_mcts_tpu_torch.cli import play
+
+    t = time.perf_counter()
+    label = agent.lower()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "dqn.pt")
+        args = ["--agent_type", agent, "--ngames", "1000000", "--checkpoint", ckpt]
+        log = io.StringIO()  # the episode lines
+        reset_launches()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stderr(log), contextlib.redirect_stdout(log):
+            driver = play.main(args + ["--max_moves", str(DQN_MOVES)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = record(label, read_launches())
+        check_launches(f"{label} path", launches, {})
+        cfg = driver.cfg
+        loss = float(driver.last_stats.loss)
+        syncs, eps = driver.updates // cfg.target_update_steps, driver.eps
+        if not (driver.moves == driver.opt.count == DQN_MOVES and os.path.isfile(ckpt)
+                and loss == loss and abs(loss) < float("inf")):
+            raise AssertionError(f"{label}: {driver.moves} moves, {driver.opt.count} updates, "
+                                 f"loss {loss}, checkpoint written {os.path.isfile(ckpt)}")
+        episodes = log.getvalue().count("Episode:")
+        driver.log = lambda s: None  # the measured steps' episode lines
+        step_ms, step_launches = device_ms_all(driver.step, 20)
+        call_ms = cuda_ms(driver.step, 20)
+        say(f"phase {label} ({agent}, training): {DQN_MOVES} moves at B={cfg.batch} in "
+            f"{wall:.2f}s: {DQN_MOVES / wall:.1f} moves/s ({smi}); {DQN_MOVES} updates, "
+            f"{syncs} target syncs, the last loss "
+            f"{loss:.6g}; eps {eps:.4f}; {episodes} episodes; launches {launches}")
+        say(f"  {agent} step (act on {cfg.batch} boards, env step, ring write, a minibatch "
+            f"of {cfg.train_batch}, Adam): {step_ms:.4f} ms device, {step_launches:.0f} "
+            f"kernel launches, {call_ms:.4f} ms a call between CUDA events ({smi})")
+        log = io.StringIO()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stderr(log), contextlib.redirect_stdout(log):
+            bench = play.main(args + ["--benchmark", "--load_model", "--max_moves",
+                                      str(DQN_BENCH_MOVES)])
+        torch.cuda.synchronize()
+        bench_wall = time.perf_counter() - t_run
+        # the loaded net is the one saved at the end of the training run's moves
+        saved = torch.load(ckpt, map_location="cuda", weights_only=True)["dqn_net"]
+        if not (bench.count == 0 and bench.opt.count == DQN_MOVES
+                and bench.eps == bench.cfg.eps_final and int(bench.replay.count) == 0
+                and all(torch.equal(p, saved[n]) for n, p in bench.net.named_parameters())):
+            raise AssertionError(f"{label} --benchmark: trained, wrote the ring, or did not "
+                                 "play the saved net")
+        say(f"  {agent} --benchmark --load_model: {bench.moves} moves in {bench_wall:.2f}s, "
+            f"{bench.moves / bench_wall:.1f} moves/s, eps {bench.eps}, "
+            f"{log.getvalue().count('Episode:')} episodes, nothing trained or stored")
+    say(f"phase {label} took {time.perf_counter() - t:.1f}s")
+
+
 def walk_edges(torch, tree_walk, T, B=67):
     """Insert and both backups against their plain versions on the card, on
     the edge inputs of tests/torch_walk_cases.py (B=67: every trace length
@@ -1951,16 +2189,15 @@ def walk_edges(torch, tree_walk, T, B=67):
     return err
 
 
-def profile_moves(torch, driver, n, cuda_only=False):
-    """Device time of n moves under torch.profiler: (total kernel ms, every
-    kernel as (name, ms, launches), largest first). Only device-side events count; an
-    operator's own row repeats the time of the kernels it launched.
-    `cuda_only` records the device's activity alone (fewer events to sort)."""
+def profile_moves(torch, driver, n):
+    """Device time of n moves under torch.profiler, which records the
+    device's activity alone (nothing here reads the host's operators):
+    (total kernel ms, every kernel as (name, ms, launches), largest
+    first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CUDA] + ([] if cuda_only else [ProfilerActivity.CPU])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         driver.run(n)
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)

@@ -2,8 +2,8 @@
 a tiny run plays whole episodes and logs them in the reference's
 "Episode:" format, for every agent type the port runs; a tiny online run
 of each training agent trains, writes its checkpoint and metrics, and
-`--load_model` brings the net back; a reference flag or agent type the port
-does not support is refused by name. The channels and modes of `play`
+`--load_model` brings the net back; a reference flag the port does not
+support is refused by name. The channels and modes of `play`
 (`--printboard` and `--interactive` against the JAX package's output,
 `--endless`, `--low`, `--save_tree`, `--trace`), `train` on saved rows,
 the `cycle` plan against the JAX package's, and one real cycle iteration.
@@ -12,7 +12,13 @@ checkpoint, reloaded), HybridSim, FiniteSim and FullSim, `train --model vp`
 on rows an ApproxPolicyIter run saved, and the VP cycle's plan.
 DistValueSim: frozen and online (a session, its checkpoint, reloaded),
 `train --model dist` on saved rows against the JAX package's Gaussian
-targets, and the dist cycle's plan against the JAX package's.
+targets, and the dist cycle's plan against the JAX package's. ValueSim2:
+a frozen run (its `--save_tree` refused with the reference's message) and
+its cycle plan against the JAX package's. DQN and DistDQN: a run that
+trains every move, logs episodes with ε, writes its checkpoint and metrics
+and reloads them; a `--benchmark --load_model` run that saves nothing; a
+`--trace` run; and `cycle`'s refusal of both, in the JAX package's words
+and exit code.
 """
 
 import os
@@ -74,14 +80,6 @@ def test_play_agent_runs_a_game_on_cpu(agent, capsys):
             driver.cfg.policy) == (evaluator, sims, low, policy)
     assert driver.episodes >= 1
     assert re.search(r"Episode:\s+1\s+Score:\s+\d+\s+Lines Cleared:\s+\d+", err)
-
-
-@pytest.mark.parametrize("agent", ["ValueSim2", "DQN", "DistDQN"])
-def test_play_refuses_unported_agent_types(agent, capsys):
-    with pytest.raises(SystemExit) as exc:
-        play.main(TINY + ["--agent_type", agent])
-    assert exc.value.code == 2
-    assert f"--agent_type {agent} is not ported" in capsys.readouterr().err
 
 
 ONLINE = ["--online", "--min_visits", "1", "--memory_size", "512", "--memory_growth", "64",
@@ -347,15 +345,6 @@ def test_cycle_dry_run_plan_matches_jax(tmp_path, capsys, data):
     assert any("cli.train" in ln for ln in plans[0]) == data
 
 
-def test_cycle_refuses_unported_agent_types(capsys):
-    from tetris_mcts_tpu_torch.cli import cycle
-
-    with pytest.raises(SystemExit) as exc:
-        cycle.main(["--agent_type", "ValueSim2", "--dry_run"])
-    assert exc.value.code == 2
-    assert "--agent_type ValueSim2 is not ported" in capsys.readouterr().err
-
-
 def test_cycle_runs_one_iteration_on_cpu(tmp_path):
     """One real iteration (cycle 1, resumed after a saved cycle 0): train on
     the saved rows, one self-play run that saves, one benchmark run."""
@@ -568,3 +557,108 @@ def test_cycle_dry_run_plan_for_dist_value_sim_matches_jax(tmp_path, capsys):
     assert plans[0] == plans[1]
     train_cmd = [ln for ln in plans[0] if "cli.train" in ln]
     assert len(train_cmd) == 1 and "--model dist" in train_cmd[0]
+
+
+# ---------------------------------------------------------------------------
+# ValueSim2
+# ---------------------------------------------------------------------------
+
+def test_play_value_sim2_runs_on_cpu(tmp_path, capsys):
+    from tetris_mcts_tpu_torch.runtime.selfplay import S2SelfPlayDriver
+    from tetris_mcts_tpu_torch.train.trainer import DEFAULT_CKPT, VVModel
+
+    driver = play.main(TINY + ["--agent_type", "ValueSim2", "--ngames", "1", "--max_moves",
+                               "4", "--online", "--save_tree", "--save_dir",
+                               str(tmp_path)])
+    err = capsys.readouterr().err
+    assert isinstance(driver, S2SelfPlayDriver) and isinstance(driver.model, VVModel)
+    assert driver.model.checkpoint_path == DEFAULT_CKPT
+    assert driver.cfg.benchmark and not driver.cfg.checkpoint_each_train  # never trains
+    assert driver.moves == 4 and int(driver.replay.total) == 0
+    assert "--save_tree: only VV-tree agents store (value, variance) per observation; " \
+           "ignored" in err and not os.listdir(tmp_path)
+    assert torch.allclose(driver.last_stats.probs.sum(1), torch.ones(2))
+    assert int(driver.s2trees.edge_count.sum()) > 0  # edges recorded
+
+
+def test_cycle_dry_run_plan_for_value_sim2_matches_jax(tmp_path, capsys):
+    from tetris_mcts_tpu.cli import cycle as jax_cycle
+    from tetris_mcts_tpu_torch.cli import cycle
+
+    plans = []
+    for main, suffix, extra in ((cycle.main, ".rec", ["--device", "cpu"]),
+                                (jax_cycle.main, ".h5", [])):
+        d = tmp_path / suffix[1:]
+        (d / "self0").mkdir(parents=True)
+        (d / "self0" / f"data0{suffix}").touch()
+        main(["--agent_type", "ValueSim2", "--iters", "1", "--dry_run", "--checkpoint", "ck",
+              "--data_dir", str(d)] + extra)
+        plans.append(normalised_plan(capsys.readouterr().out.replace(str(d), "D")))
+    assert plans[0] == plans[1]
+    assert sum("--agent_type ValueSim2" in ln for ln in plans[0]) == 2
+    assert any("cli.train" in ln and "--model vv" in ln for ln in plans[0])
+
+
+# ---------------------------------------------------------------------------
+# DQN and DistDQN
+# ---------------------------------------------------------------------------
+
+DQN_TINY = ["--device", "cpu", "--batch", "4", "--memory_size", "256", "--seed", "3"]
+
+
+@pytest.mark.parametrize("agent", ["DQN", "DistDQN"])
+def test_play_dqn_trains_saves_and_reloads_on_cpu(agent, tmp_path, capsys):
+    from tetris_mcts_tpu_torch.runtime.dqn import DQNDriver
+
+    ckpt, metrics = str(tmp_path / "ck" / "dqn.pt"), str(tmp_path / "m.jsonl")
+    driver = play.main(DQN_TINY + ["--agent_type", agent, "--ngames", "1", "--max_moves",
+                                   "400", "--checkpoint", ckpt, "--metrics", metrics,
+                                   "--save"])
+    cap = capsys.readouterr()
+    assert isinstance(driver, DQNDriver) and driver.cfg.distributional == (agent == "DistDQN")
+    assert "--save/--status_dir are not supported for DQN agents" in cap.err
+    assert driver.episodes >= 1 and driver.updates == driver.moves == driver.opt.count
+    line = re.search(r"Episode:\s+1\s+Score:\s+\d+\s+Lines Cleared:\s+\d+\s+eps:(\S+)",
+                     cap.err)
+    assert line and 0.01 <= float(line.group(1)) < 1.0
+    assert "Saving model..." in cap.out and os.path.isfile(ckpt)
+    reader = MetricsReader(metrics)
+    reader.poll()
+    eps = reader.of_kind("episode")
+    assert len(eps) == driver.episodes and "eps" in eps[0]
+    boards = torch.as_tensor(np.random.RandomState(0).randint(-1, 2, (16, 1, 20, 10)),
+                             dtype=torch.float32)
+    again = play.main(DQN_TINY + ["--agent_type", agent, "--checkpoint", ckpt,
+                                  "--load_model", "--benchmark", "--ngames", "0"])
+    assert again.cfg.benchmark and again.eps == again.cfg.eps_final
+    assert torch.equal(driver.net(boards), again.net(boards))
+    assert again.opt.count == driver.opt.count
+
+
+def test_play_dqn_benchmark_and_trace_save_nothing(tmp_path, capsys):
+    ckpt = tmp_path / "dqn.pt"
+    driver = play.main(DQN_TINY + ["--agent_type", "DQN", "--benchmark", "--ngames", "1",
+                                   "--max_moves", "20", "--checkpoint", str(ckpt)])
+    assert driver.episodes >= 1 and driver.moves <= 20  # greedy: games end soon
+    assert driver.count == 0 and driver.opt.count == 0
+    assert int(driver.replay.count) == 0 and not ckpt.exists()
+    trace = tmp_path / "trace"
+    play.main(DQN_TINY + ["--agent_type", "DistDQN", "--trace", str(trace), "--trace_moves",
+                          "2", "--checkpoint", str(ckpt)])
+    assert (trace / "trace.json").is_file() and not ckpt.exists()
+    assert "Trace of 2 moves written to" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("agent", ["DQN", "DistDQN"])
+def test_cycle_refuses_dqn_agents_as_jax(agent, tmp_path, capsys):
+    from tetris_mcts_tpu.cli import cycle as jax_cycle
+    from tetris_mcts_tpu_torch.cli import cycle
+
+    out = []
+    for main, extra in ((cycle.main, ["--device", "cpu"]), (jax_cycle.main, [])):
+        rc = main(["--agent_type", agent, "--iters", "1", "--dry_run", "--data_dir",
+                   str(tmp_path / "d")] + extra)
+        out.append((rc, capsys.readouterr()))
+    (rc_t, cap_t), (rc_j, cap_j) = out
+    assert rc_t == rc_j == 2 and cap_t.err == cap_j.err
+    assert "DQN agents train online per step" in cap_t.err and "===" not in cap_t.out

@@ -32,6 +32,12 @@ distributions within rtol 1e-6 / atol 1e-6), and one DistModel train step
 against the CPU. The VV surface adds two: lp moves with `--select_kernel
 0` or `--insert_kernel 0` equal to the kernels' in every tree array, and
 lp moves under `--policy max` (plain select and backups) against the CPU.
+ValueSim2 adds one: three moves (insert kernel, plain walks) against the
+CPU (integers, visits and the edge tables equal; values, vars and max_ret
+within rtol 1e-6 / atol 1e-5). DQN adds two: ten steps of each head from
+the same weights and draws against the CPU (actions, envs and the ring
+equal; losses rtol 1e-5), then one update (loss rtol 1e-5, grads rtol 1e-4
+/ atol 1e-5 x the largest, Adam fed the card's grads rtol 1e-6 / atol 1e-7).
 """
 
 import numpy as np
@@ -505,3 +511,75 @@ def test_policy_max_on_card_matches_cpu(card):
     for f in ("values", "vars_", "vmax"):
         torch.testing.assert_close(getattr(tg, f).cpu(), getattr(tc, f), rtol=1e-6, atol=1e-5)
     assert float(tc.vmax.max()) > 0
+
+
+def test_s2_move_on_card_matches_cpu(card):
+    """Three ValueSim2 moves (the linspace stub net, pools of 128, so the
+    second move harvests and stores): the card (insert kernel) equals the
+    CPU (plain insert); the search draws nothing."""
+    from tetris_mcts_tpu_torch.search import stochastic as ST
+
+    scfg = M.SearchConfig(tree=T.TreeConfig(max_nodes=128, max_obs=128, table_size=256,
+                                            max_depth=16), sims=8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        W.reset_launches()
+        move = ST.make_s2_move_fn(stub_lp, scfg, min_visits_store=1)
+        s2, envs = ST.init_s2_batch(5, 4, scfg, device=dev)
+        rep = M.init_replay(256, dev)
+        acts = []
+        for _ in range(3):
+            envs, st = move(s2, envs, rep)
+            acts.append(torch.cat([st.action[:, None].float(), st.probs], 1))
+        out[dev] = (torch.stack(acts), envs, s2, rep, dict(W.LAUNCHES))
+    (ag, eg, sg, rg, lg), (ac, ec, sc, rc, lc) = out["cuda"], out["cpu"]
+    assert lg["insert7_walk"] == 3 * 8 and sum(lg.values()) == 24 and sum(lc.values()) == 0
+    assert torch.equal(ag.cpu(), ac) and torch.equal(eg.cpu(), ec)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits", "root"):
+        assert torch.equal(getattr(sg.base, f).cpu(), getattr(sc.base, f)), f
+    for f in ("edge_child", "edge_count", "edge_dscore"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f
+    for a, b in ((sg.base.values, sc.base.values), (sg.base.vars_, sc.base.vars_),
+                 (sg.max_ret, sc.max_ret)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-5)
+    assert rc.total.item() == rg.total.item() > 0 and float(sc.edge_count.sum()) > 0
+    for a, b in zip(rg.rows(), rc.rows()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dist", [False, True], ids=["dqn", "distdqn"])
+def test_dqn_steps_on_card_match_cpu(card, dist):
+    """Ten DQN (or C51) steps from the same weights and draws (B=8, a ring
+    of 64 that wraps): actions, envs and the ring equal, losses within
+    rtol 1e-5; then one update of the card's state against the CPU's."""
+    from tetris_mcts_tpu_torch.runtime import dqn as D
+
+    cfg = D.DQNConfig(batch=8, memory_size=64, train_batch=16, target_update_steps=4, seed=4,
+                      distributional=dist)
+    rng = np.random.RandomState(7)
+    draws = [(rng.rand(8).astype(np.float32), rng.randint(0, 7, 8),
+              rng.randint(0, min(8 * (k + 1), 64), 16)) for k in range(10)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        d = D.DQNDriver(cfg, device=dev, log=lambda s: None)
+        feed = iter(draws)
+        d.draws = lambda feed=feed, dev=dev: D.DQNDraws(
+            *(torch.as_tensor(x, device=dev) for x in next(feed)))
+        runs[dev] = (d, [(st.action, st.loss, d.envs, *(a.clone() for a in d.replay.arrays()))
+                         for st in (d.step() for _ in range(10))])
+    (g, gout), (c, cout) = runs["cuda"], runs["cpu"]
+    for go, co in zip(gout, cout):
+        for a, b in zip(go[:1] + go[2:], co[:1] + co[2:]):
+            assert torch.equal(a.cpu(), b)
+        torch.testing.assert_close(go[1].cpu(), co[1], rtol=1e-5, atol=1e-7)
+    # the update on its own (Adam turns a gradient's rounding difference near
+    # zero into an update of up to its learning rate, so the nets part after
+    # a few steps): loss and grads per device, Adam fed the card's grads
+    from torch_train_cases import dqn_update_on_two_devices
+
+    up = dqn_update_on_two_devices(g)
+    torch.testing.assert_close(up["card"][0].cpu(), up["cpu"][0], rtol=1e-5, atol=0)
+    for a, b in zip(up["card"][1], up["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+    for a, b in zip(*up["params"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)

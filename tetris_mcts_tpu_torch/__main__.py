@@ -20,8 +20,8 @@ def main():
         from tetris_mcts_tpu_torch.cli.train import main as run
     else:
         from tetris_mcts_tpu_torch.cli.cycle import main as run
-    run(argv)
-    return 0
+    rc = run(argv)  # cycle returns its exit code; play and train return objects
+    return rc if isinstance(rc, int) else 0
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ running them. `--train_args` and `--play_args` append flags to the train
 and to every play command (for example smaller pools). `--model` (the
 net trained each cycle) defaults to vp for the VP-net agents
 (ApproxPolicyIter, HybridSim, FiniteSim, FullSim), dist for DistValueSim,
-else vv.
+else vv. DQN and DistDQN are refused with code 2, as the reference refuses
+them: they train every move and save no rows.
 
     python -m tetris_mcts_tpu_torch cycle --iters 10 --data_dir ./data
 """
@@ -82,10 +83,16 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.agent_type not in AGENT_TYPES:
-        parser.error(f"--agent_type {args.agent_type} is not ported yet (the port runs "
-                     f"{', '.join(AGENT_TYPES)})")
+        parser.error(f"--agent_type {args.agent_type}: not an agent type of play "
+                     f"({', '.join(AGENT_TYPES)})")
+    ev = AGENT_TYPES[args.agent_type][0]
+    if ev == "dqn":
+        # DQN trains per env step inside its own driver and saves no rows:
+        # a cycle would self-play forever while the offline train never fires
+        print("cycle: DQN agents train online per step and produce no self-play HDF5; "
+              "use `play --agent_type DQN --online` instead", file=sys.stderr)
+        return 2
     if not args.model:
-        ev = AGENT_TYPES[args.agent_type][0]
         args.model = "vp" if ev in VP_EVALUATORS else "dist" if ev == "dist" else "vv"
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "

@@ -1,9 +1,8 @@
 """`play` entry point of the port: MCTS self-play, online (storage and
 training) or in benchmark mode.
 
-Mirrors the reference `cli/play.py` for the agent types whose evaluator
-is ported (`AGENT_TYPES`, the reference's agent -> (evaluator, trains)
-map):
+Mirrors the reference `cli/play.py` for all of its agent types
+(`AGENT_TYPES`, the reference's agent -> (evaluator, trains) map):
 
 - ValueSimLP, ValueSimC: the lp evaluator (the net on the leaf's 7
   children), train;
@@ -18,7 +17,14 @@ map):
   training;
 - DistValueSim: the distributional (C51) search
   (`search/distributional.py`) on the distributional net (50 bins on [0,
-  1000]), trains.
+  1000]), trains;
+- ValueSim2: the stochastic-transition search (`search/stochastic.py`) on
+  the VV net, no training;
+- DQN, DistDQN: the DQN agent (`runtime/dqn.py`, no tree) with the
+  standard or the C51 head (50 bins on [0, 2500]); it trains every move
+  unless `--benchmark` is given (`--online` is not read), saves its nets
+  at the end (default `train/trainer.DQN_DEFAULT_CKPT`), and stores no
+  rows: `--save` and `--status_dir` are ignored with a message.
 
 Training runs as in the reference: when the agent trains and `--online`
 is given and `--benchmark` is not. It then saves the model after every
@@ -27,9 +33,9 @@ default is the VV net's `train/trainer.DEFAULT_CKPT`, redirected to
 `VP_DEFAULT_CKPT` for the VP-net agents and `DIST_DEFAULT_CKPT` for
 DistValueSim, `cli.resolve_ckpt`); `--load_model` reads it first, a
 checkpoint of the JAX package too. `--low` defaults as in the reference:
-10 under bayes, 5 for Vanilla/VanillaC and DistValueSim, else 1. The
-reference's other agent types, and any reference flag this port does not
-read, are refused with a message that names them.
+10 under bayes, 5 for Vanilla/VanillaC and DistValueSim, else 1. A
+reference flag this port does not read is refused with a message that
+names it.
 
 The search's walks: `--select_kernel 0` and `--insert_kernel 0` run that
 step's plain walk on the card in place of its kernel (both default to 1,
@@ -41,7 +47,8 @@ with a warning) instead of refusing them.
 Channels: `--save` writes one row a game a move to
 `{save_dir}/{save_file}{cycle}.rec` (`utils/data.DataSaver`),
 `--save_tree` the trees' searched observations to
-`{save_dir}/tree{cycle}.npz` at the end, `--status_dir` the live-state
+`{save_dir}/tree{cycle}.npz` at the end (not for ValueSim2, as in the
+reference), `--status_dir` the live-state
 memmaps, `--printboard` game 0's board each move, `--metrics` a JSONL
 event log. `--endless` plays until interrupted (SIGINT or SIGTERM; the
 final saves run). A stall watchdog (`--stall_timeout`, on by default)
@@ -81,11 +88,11 @@ AGENT_TYPES = {
     "HybridSim": ("hybrid", False), "FiniteSim": ("finite", False),
     "FullSim": ("full", False),
     "DistValueSim": ("dist", True),
+    "ValueSim2": ("s2", False),
+    "DQN": ("dqn", True), "DistDQN": ("dqn", True),
 }
 # the evaluators that run on the VP net
 VP_EVALUATORS = ("vp", "hybrid", "finite", "full")
-# the reference CLI's other agent types, not ported yet
-UNPORTED_AGENT_TYPES = ("ValueSim2", "DQN", "DistDQN")
 # the selection rules of --policy: the select kernel's (ops/tree_walk.POLICIES)
 # and max, which runs the plain walks
 POLICY_CHOICES = POLICIES + ("max",)
@@ -97,8 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Batched MCTS Tetris self-play with online VV-net "
                     "training (PyTorch/CUDA port)",
     )
-    p.add_argument("--agent_type", default="ValueSimLP",
-                   choices=tuple(AGENT_TYPES) + UNPORTED_AGENT_TYPES)
+    p.add_argument("--agent_type", default="ValueSimLP", choices=tuple(AGENT_TYPES))
     p.add_argument("--mcts_sims", type=int, default=100)
     p.add_argument("--ngames", type=int, default=50)
     p.add_argument("--endless", action="store_true",
@@ -270,10 +276,61 @@ def capture_trace(driver, directory: str, moves: int, device):
     print(f"Trace of {moves} moves written to {path}", file=sys.stderr)
 
 
+def _interrupt_on_sigterm(finally_):
+    """SIGTERM takes the interrupt path, so the final steps run; the
+    previous handler comes back with them."""
+
+    def _term(signum, frame):
+        raise KeyboardInterrupt
+
+    finally_.callback(signal.signal, signal.SIGTERM, signal.signal(signal.SIGTERM, _term))
+
+
+def play_dqn(args, finally_):
+    """The DQN and DistDQN agents (the reference CLI's DQN branch): play until
+    --ngames episodes have ended (or --endless) within --max_moves moves,
+    training every move unless --benchmark; the final save (not after
+    --benchmark or --trace) is one of `finally_`'s steps."""
+    from tetris_mcts_tpu_torch.runtime.dqn import DQNConfig, DQNDriver
+
+    if args.save or args.status_dir:
+        print("--save/--status_dir are not supported for DQN agents (no tree statistics "
+              "to store)", file=sys.stderr)
+    metrics = None
+    if args.metrics:
+        from tetris_mcts_tpu_torch.obs.metrics import MetricsWriter
+        metrics = MetricsWriter(args.metrics)
+        finally_.callback(metrics.close)
+    driver = DQNDriver(
+        DQNConfig(batch=args.batch, memory_size=args.memory_size,
+                  distributional=args.agent_type == "DistDQN", benchmark=args.benchmark,
+                  seed=args.seed, actions_per_drop=args.app, scoring=args.scoring,
+                  randomizer=args.randomizer),
+        device=args.device, metrics=metrics,
+        checkpoint_path=resolve_ckpt(args.checkpoint, "dqn"))
+    if args.load_model:
+        driver.load()
+    if not args.benchmark and not args.trace:
+        finally_.callback(driver.save, verbose=True)
+    _interrupt_on_sigterm(finally_)
+    try:
+        if args.trace:
+            capture_trace(driver, args.trace, args.trace_moves, driver.device)
+            return driver
+        moves = 0
+        while (args.endless or driver.episodes < args.ngames) and moves < args.max_moves:
+            driver.step()
+            moves += 1
+    except KeyboardInterrupt:
+        print("interrupted", file=sys.stderr)
+    return driver
+
+
 def main(argv=None):
     from tetris_mcts_tpu_torch.runtime import watchdog
-    from tetris_mcts_tpu_torch.runtime.selfplay import (DistSelfPlayDriver, SelfPlayConfig,
-                                                        SelfPlayDriver, VPSelfPlayDriver)
+    from tetris_mcts_tpu_torch.runtime.selfplay import (DistSelfPlayDriver, S2SelfPlayDriver,
+                                                        SelfPlayConfig, SelfPlayDriver,
+                                                        VPSelfPlayDriver)
     from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -282,10 +339,6 @@ def main(argv=None):
     if unknown:
         parser.error(f"not supported by the port yet: {' '.join(unknown)} (see "
                      "README.md)")
-    if args.agent_type in UNPORTED_AGENT_TYPES:
-        parser.error(
-            f"--agent_type {args.agent_type} is not ported yet (the port runs "
-            f"{', '.join(AGENT_TYPES)})")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to run the plain versions)")
@@ -343,6 +396,8 @@ def main(argv=None):
             finally_.callback(watchdog.install, None)
             finally_.callback(wd.stop)
             wd.start()
+        if evaluator == "dqn":
+            return play_dqn(args, finally_)
         if evaluator in VP_EVALUATORS:
             model = VPModel(args.seed, args.device,
                             checkpoint_path=resolve_ckpt(args.checkpoint, "vp"))
@@ -367,22 +422,20 @@ def main(argv=None):
             status = StatusPublisher(args.status_dir, batch=args.batch)
         if args.printboard:
             status = _PrintBoard(status)
-        driver_cls = {"vp": VPSelfPlayDriver, "dist": DistSelfPlayDriver}.get(
-            evaluator, SelfPlayDriver)
+        driver_cls = {"vp": VPSelfPlayDriver, "dist": DistSelfPlayDriver,
+                      "s2": S2SelfPlayDriver}.get(evaluator, SelfPlayDriver)
         driver = driver_cls(cfg, model=model, device=args.device, metrics=metrics,
                             saver=saver, status=status)
         if saves_model:
             finally_.callback(model.save, verbose=True)
-        if args.save_tree:
+        if args.save_tree and driver.save_nodes is None:
+            print("--save_tree: only VV-tree agents store (value, variance) per "
+                  "observation; ignored", file=sys.stderr)
+        elif args.save_tree:
             os.makedirs(args.save_dir, exist_ok=True)
             finally_.callback(driver.save_nodes,
                               os.path.join(args.save_dir, f"tree{args.cycle}.npz"))
-
-        # SIGTERM takes the interrupt path, so the final steps run
-        def _term(signum, frame):
-            raise KeyboardInterrupt
-
-        finally_.callback(signal.signal, signal.SIGTERM, signal.signal(signal.SIGTERM, _term))
+        _interrupt_on_sigterm(finally_)
         try:
             if args.trace:
                 capture_trace(driver, args.trace, args.trace_moves, driver.device)

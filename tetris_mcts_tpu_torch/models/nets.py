@@ -1,5 +1,6 @@
-"""The value/variance net (`VVNet`), the value/policy net (`VPNet`) and the
-distributional value net (`DistNet`) as NCHW `nn.Module`s.
+"""The value/variance net (`VVNet`), the value/policy net (`VPNet`), the
+distributional value net (`DistNet`) and the DQN nets (`QNet`, `DistQNet`)
+as NCHW `nn.Module`s.
 
 Counterpart of the reference package's `models/nets.py`. `VVNet`: three 3x3
 VALID convs (32 filters) with ReLU, FC 1792 -> 256 with ReLU, FC 256 -> 2,
@@ -24,6 +25,12 @@ body; both heads run in float32.
 `DistNet`: `VVNet`'s body (three 3x3 VALID convs of 32 filters with ReLU,
 FC 1792 -> 256 with ReLU) and a float32 head FC 256 -> atoms, then a
 softmax: (n, atoms) probabilities. `compute_dtype` covers the body.
+
+`QNet` and `DistQNet` are the DQN agents' nets: two 3x3 VALID convs (32
+filters for `QNet`, 16 for `DistQNet`) with ReLU, FC (filters x 16 x 6) ->
+128 with ReLU, then FC 128 -> 7 action values (`QNet`) or FC 128 -> 7 x
+atoms logits and a softmax over the atoms of each action (`DistQNet`, (n,
+7, atoms)). Both run in float32 only.
 
 Precision on a CUDA card: the default (float32) path computes in true
 float32. cuDNN convolutions would run in TF32 under PyTorch's default
@@ -157,3 +164,35 @@ class VPNet(nn.Module):
         p = F.relu(F.linear(x, self.fc_p.weight.to(dt), self.fc_p.bias.to(dt)))
         return (F.linear(v.float(), self.value.weight, self.value.bias),
                 F.linear(p.float(), self.policy.weight, self.policy.bias))
+
+
+class QNet(nn.Module):
+    def __init__(self, n_out: int = 7, filters: int = 32, n_fc: int = 128, seed: int = 0):
+        super().__init__()
+        self.conv1 = nn.Conv2d(1, filters, 3)
+        self.conv2 = nn.Conv2d(filters, filters, 3)
+        self.fc1 = nn.Linear(filters * 16 * 6, n_fc)
+        self.fc_q = nn.Linear(n_fc, n_out)
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for m in (self.conv1, self.conv2, self.fc1, self.fc_q):
+                _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+                m.bias.zero_()
+
+    def forward(self, x):
+        """x (n, 1, 20, 10) -> (n, 7) action values, float32."""
+        with tf32_off():
+            for conv in (self.conv1, self.conv2):
+                x = F.relu(F.conv2d(x.float(), conv.weight, conv.bias))
+            x = F.relu(F.linear(x.flatten(1), self.fc1.weight, self.fc1.bias))
+            return F.linear(x, self.fc_q.weight, self.fc_q.bias)
+
+
+class DistQNet(QNet):
+    def __init__(self, atoms: int = 50, filters: int = 16, n_fc: int = 128, seed: int = 0):
+        super().__init__(7 * atoms, filters, n_fc, seed)
+        self.atoms = atoms
+
+    def forward(self, x):
+        """x (n, 1, 20, 10) -> (n, 7, atoms) probabilities, float32."""
+        return torch.softmax(super().forward(x).reshape(x.shape[0], 7, self.atoms), -1)

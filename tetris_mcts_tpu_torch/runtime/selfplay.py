@@ -6,7 +6,8 @@ policy playout (hybrid, finite, full) on the VP net
 (`SelfPlayConfig.evaluator`); `VPSelfPlayDriver` the ApproxPolicyIter
 search (`search/vp.py`) with the VP net; `DistSelfPlayDriver` the
 DistValueSim search (`search/distributional.py`) with the distributional
-net.
+net; `S2SelfPlayDriver` the ValueSim2 search (`search/stochastic.py`) with
+the VV net.
 
 B games play MCTS moves in lockstep; each move is one call of the move
 program (`search/mcts.make_move_fn`), which stays on the device and, in
@@ -67,6 +68,7 @@ from tetris_mcts_tpu_torch.ops import env_packed as EP
 from tetris_mcts_tpu_torch.runtime import watchdog
 from tetris_mcts_tpu_torch.search import distributional as DD
 from tetris_mcts_tpu_torch.search import mcts
+from tetris_mcts_tpu_torch.search import stochastic as ST
 from tetris_mcts_tpu_torch.search import tree as T
 from tetris_mcts_tpu_torch.search import vp as VP
 from tetris_mcts_tpu_torch.search.mcts import SearchConfig
@@ -77,8 +79,8 @@ from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
 class SelfPlayConfig(NamedTuple):
     batch: int = 64
     sims: int = 100
-    evaluator: str = "lp"  # mcts.EVALUATORS, "vp" (VPSelfPlayDriver) or
-                           # "dist" (DistSelfPlayDriver)
+    evaluator: str = "lp"  # mcts.EVALUATORS, "vp" (VPSelfPlayDriver), "dist"
+                           # (DistSelfPlayDriver) or "s2" (S2SelfPlayDriver)
     max_nodes: int = 4096
     max_obs: int = 4096
     table_size: int = 8192
@@ -152,8 +154,8 @@ class _OnlineDriverBase:
     sessions, the benchmark channel and the throughput reports. A subclass
     owns the move program, the model, the trees and the replay ring
     (`self.model`, `self.trees`, `self.replay`) and provides `step`,
-    `_saver_extras(stats)`, `_training_columns(order)` and
-    `_reinit_games(seed)`."""
+    `_training_columns(order)` and `_reinit_games(seed)`, and
+    `_saver_extras(stats)` where its search keeps variance statistics."""
 
     _TP_REPORT_EVERY = 50    # moves per throughput report, or a window of
     _TP_REPORT_SECONDS = 25  # >= 4 moves older than this (sessions restart it)
@@ -287,6 +289,14 @@ class _OnlineDriverBase:
         floats = torch.cat([stats.probs, cs.reshape(cs.shape[0], -1),
                             stats.root_value[:, None], var[:, None]], 1).to(torch.float32)
         return [envs, floats, stats.action.to(torch.int32)]
+
+    def _saver_extras(self, stats):
+        """(child_stats (B, 3, 7), root variance (B,)): the saver's
+        search-statistics columns; zeros for the searches that keep no
+        variance statistics (the reference saves zeros too)."""
+        B = stats.action.shape[0]
+        return (torch.zeros(B, 3, T.N_ACTIONS, device=self.device),
+                torch.zeros(B, device=self.device))
 
     def _publish(self, envs, floats, action):
         """Hand one move's rows to the saver and game 0's board with every
@@ -673,8 +683,6 @@ class SelfPlayDriver(_OnlineDriverBase):
         return self._after_move(stats, envs_prev)
 
     def _saver_extras(self, stats):
-        """(child_stats (B, 3, 7), root variance (B,)): the saver's
-        search-statistics columns."""
         return stats.child_stats, stats.root_var
 
     def _training_columns(self, order):
@@ -722,13 +730,6 @@ class VPSelfPlayDriver(_OnlineDriverBase):
         envs_prev = self.envs
         self.envs, stats = self._move(self.vtrees, self.envs, self.replay)
         return self._after_move(stats, envs_prev)
-
-    def _saver_extras(self, stats):
-        """Zeros for the saver's child_stats and variance: the VP search
-        keeps no variance statistics (the reference saves zeros too)."""
-        B = stats.action.shape[0]
-        return (torch.zeros(B, 3, T.N_ACTIONS, device=self.device),
-                torch.zeros(B, device=self.device))
 
     def _training_columns(self, order):
         """[states int8 (n, 20, 10), value, policy (n, 7), weight] of the
@@ -784,13 +785,6 @@ class DistSelfPlayDriver(_OnlineDriverBase):
         self.envs, stats = self._move(self.dtrees, self.envs, self.replay)
         return self._after_move(stats, envs_prev)
 
-    def _saver_extras(self, stats):
-        """Zeros for the saver's child_stats and variance, as the reference
-        saves for this search."""
-        B = stats.action.shape[0]
-        return (torch.zeros(B, 3, T.N_ACTIONS, device=self.device),
-                torch.zeros(B, device=self.device))
-
     def _training_columns(self, order):
         """[states int8 (n, 20, 10), target distribution (n, atoms), weight]
         of the ring rows `order`, on the device."""
@@ -801,6 +795,42 @@ class DistSelfPlayDriver(_OnlineDriverBase):
     def _dump_training_data(self, data):
         """No training-set dump for the distributional model (the reference
         dumps the VV model's only)."""
+
+
+class S2SelfPlayDriver(_OnlineDriverBase):
+    """The ValueSim2 driver (the reference `S2SelfPlayDriver`): the
+    stochastic-transition search (`search/stochastic.py`) with single-leaf
+    evaluation on the VV net, on the same host loop as `SelfPlayDriver`.
+    The search draws nothing. The reference agent never trains, and `play`
+    runs it in benchmark mode; it keeps no node dump (no `save_nodes`)."""
+
+    save_nodes = None
+
+    def __init__(self, cfg: SelfPlayConfig, model: VVModel | None = None,
+                 device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
+                 metrics=None, saver=None, status=None):
+        self._init_bookkeeping(cfg, log, metrics, saver, status, device)
+        self.model = model if model is not None else VVModel(cfg.seed, self.device)
+        self.search_cfg = search_config(cfg, "s2")
+        mcts.log_plain_walks(self.log, self.search_cfg.tree, ("insert",))
+        self._move = ST.make_s2_move_fn(
+            self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None), self.search_cfg,
+            min_visits_store=cfg.min_visits_store, store=not cfg.benchmark)
+        self.s2trees, self.envs = ST.init_s2_batch(cfg.seed, cfg.batch, self.search_cfg,
+                                                   self.device)
+        self.replay = mcts.init_replay(cfg.memory_size, self.device)
+
+    def _reinit_games(self, seed: int):
+        self.s2trees, self.envs = ST.init_s2_batch(seed, self.cfg.batch, self.search_cfg,
+                                                   self.device)
+
+    def step(self):
+        """One batched move (B games advance one action each)."""
+        envs_prev = self.envs
+        self.envs, stats = self._move(self.s2trees, self.envs, self.replay)
+        return self._after_move(stats, envs_prev)
+
+    _training_columns = SelfPlayDriver._training_columns
 
 
 def _host_read(parts):

@@ -111,7 +111,7 @@ def centers(dcfg: DistConfig, device="cpu"):
         dcfg.vmax / dcfg.atoms)
 
 
-def _pairwise_sum(x):
+def pairwise_sum(x):
     """The sum over the last axis as a pairwise tree: zero-padded to a power
     of two, then halves added until one column is left. Elementwise adds
     only, so the card and the CPU round alike."""
@@ -125,10 +125,19 @@ def _pairwise_sum(x):
     return x[..., 0]
 
 
+def bin_sums(terms, dst, n_bins: int):
+    """out[b, j] = the sum of the terms[b, i] with dst[b, i] == j, each
+    bin's terms added in `pairwise_sum`'s fixed order (a scatter-add on
+    CUDA adds with atomics in no fixed order). terms, dst (B, K) -> (B,
+    n_bins)."""
+    hit = dst[:, None, :] == torch.arange(n_bins, device=dst.device)[None, :, None]
+    return pairwise_sum(torch.where(hit, terms[:, None, :], 0.0))
+
+
 def mean_dist(dist, dcfg: DistConfig):
     """E[dist] over the bin centers (the reference `mean_dist`),
     dist (..., atoms)."""
-    return _pairwise_sum(dist * centers(dcfg, dist.device))
+    return pairwise_sum(dist * centers(dcfg, dist.device))
 
 
 def shift_distribution_batched(dist, x, dcfg: DistConfig):
@@ -149,9 +158,7 @@ def shift_distribution_batched(dist, x, dcfg: DistConfig):
     ub = (lb + 1).clamp(0, atoms - 1)
     # terms (B, 2 atoms): source bins' lower shares, then their upper shares
     terms = torch.cat([dist * (1.0 - fraction), dist * fraction], 1)
-    dst = torch.cat([lb, ub], 1)
-    hit = dst[:, None, :] == b[None, :, None]                 # (B, atoms, 2 atoms)
-    return _pairwise_sum(torch.where(hit, terms[:, None, :], 0.0))
+    return bin_sums(terms, torch.cat([lb, ub], 1), atoms)
 
 
 # ---------------------------------------------------------------------------

@@ -403,6 +403,15 @@ def _kids_stats(trees: Tree, idx):
     return kids, sc, obs, kept
 
 
+def seq_sum(x):
+    """The sum over the last axis taken in order, term by term, as XLA's CPU
+    code sums a short minor axis; the same on the card and the CPU."""
+    s = x[..., 0]
+    for a in range(1, x.shape[-1]):
+        s = s + x[..., a]
+    return s
+
+
 def first_max(q):
     """Index of the first maximum over the last axis (all -inf -> 0)."""
     a7 = torch.arange(q.shape[-1], device=q.device)

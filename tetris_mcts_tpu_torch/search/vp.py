@@ -81,14 +81,6 @@ def init_vp_batch(seed: int, batch: int, cfg: mcts.SearchConfig, device="cuda"):
     return init_vp_tree(envs, cfg.tree), envs
 
 
-def _seq_sum(p):
-    """The sum over the last axis (7) taken in order, term by term."""
-    s = p[..., 0]
-    for a in range(1, p.shape[-1]):
-        s = s + p[..., a]
-    return s
-
-
 # ---------------------------------------------------------------------------
 # selection
 # ---------------------------------------------------------------------------
@@ -121,7 +113,7 @@ def select_batched(vts: VPTree, uniforms, cfg: TreeConfig):
         traces[:, depth] = torch.where(live, idx.to(torch.int32), traces[:, depth])
         o = base.nstat[b, 1, idx].long()
         p = vts.prior[b, :, o]                                    # (B, 7)
-        total = _seq_sum(p)
+        total = T.seq_sum(p)
         probs = torch.where((total > 0)[:, None],
                             p / torch.clamp_min(total, 1e-9)[:, None], 1.0 / N_ACTIONS)
         cum = [probs[:, 0]]
@@ -194,7 +186,7 @@ def root_policy(vts: VPTree):
     b = torch.arange(base.root.shape[0], device=base.root.device)
     o = base.nstat[b, 1, base.root.long()].long()
     counts = vts.pol_new[b, :, o]
-    total = _seq_sum(counts)[:, None]
+    total = T.seq_sum(counts)[:, None]
     return torch.where(total > 0, counts / torch.clamp_min(total, 1e-9), 1.0 / N_ACTIONS)
 
 

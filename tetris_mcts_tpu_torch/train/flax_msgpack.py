@@ -1,9 +1,11 @@
 """A numpy-only reader of the JAX package's checkpoints.
 
-A checkpoint of the reference package (`VVModel.save`, `VPModel.save`) is a
-stdlib pickle of a dict: `params` and `opt_state` are flax state dicts
-serialised by `flax.serialization.to_bytes` (msgpack), and the VV model adds
-its output bounds `ubound` and `lbound` as numpy arrays. This module reads
+A checkpoint of the reference package (`VVModel.save`, `VPModel.save`,
+`DQNDriver.save`) is a stdlib pickle of a dict: `params` and `opt_state`
+are flax state dicts serialised by `flax.serialization.to_bytes`
+(msgpack); the VV model adds its output bounds `ubound` and `lbound` as
+numpy arrays, the DQN driver its target net's `target_params` as flax
+bytes. This module reads
 such a file without flax or msgpack, so the card's machine, which has
 neither, can load the trained nets:
 
@@ -150,13 +152,15 @@ class _NumpyOnly(pickle.Unpickler):
 
 def read_jax_checkpoint(path: str) -> dict:
     """The JAX package's checkpoint at `path` as a dict: `params` and
-    `opt_state` state dicts (numpy leaves), and `ubound` / `lbound` where
-    the file has them (the VV model's)."""
+    `opt_state` state dicts (numpy leaves), `target_params` where the file
+    has them (the DQN driver's), and `ubound` / `lbound` where the file has
+    them (the VV model's)."""
     with open(path, "rb") as f:
         blob = _NumpyOnly(io.BytesIO(f.read())).load()
     if not isinstance(blob, dict) or "params" not in blob or "opt_state" not in blob:
         raise ValueError(f"{path}: not a checkpoint of the JAX package (no params / opt_state)")
     out = dict(blob)
-    for k in ("params", "opt_state"):
-        out[k] = msgpack_restore(blob[k])
+    for k in ("params", "opt_state", "target_params"):
+        if k in blob:
+            out[k] = msgpack_restore(blob[k])
     return out

@@ -1,5 +1,6 @@
 """The optimizers, written by hand (counterpart of the reference package's
-`train/optim.py`): `Yogi` for the VV net and `AdamAmsgrad` for the VP net.
+`train/optim.py`): `Yogi` for the VV net, `AdamAmsgrad` for the VP net and
+`Adam` for the DQN nets.
 
 `Yogi` with L2 weight decay is the optax chain `add_decayed_weights(wd)`
 then `optax.yogi(lr, eps=eps)`. One update, for every parameter p with gradient g, in optax's order:
@@ -11,6 +12,17 @@ then `optax.yogi(lr, eps=eps)`. One update, for every parameter p with gradient 
     p  = p + -lr * (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
 
 mu and nu start at 1e-6.
+
+`Adam` is `optax.adam(lr)` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0). mu
+and nu start at 0; one update:
+
+    mu     = (1 - b1) * g + b1 * mu
+    nu     = (1 - b2) * g^2 + b2 * nu
+    count += 1
+    p      = p + -lr * (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
+
+(`torch.optim.Adam` computes the same update in another order,
+lr / (1 - b1^count) times mu / (sqrt(nu) / sqrt(1 - b2^count) + eps).)
 
 `AdamAmsgrad` is `optax.amsgrad(lr)` (optax 0.2.6: `scale_by_amsgrad` then
 the learning rate). mu, nu and nu_max start at 0; one update:
@@ -41,7 +53,8 @@ INT32_MAX = 2**31 - 1
 LR, EPS, WEIGHT_DECAY, B1, B2, INITIAL_ACCUMULATOR = 1e-3, 1e-3, 1e-3, 0.9, 0.999, 1e-6
 
 
-AMS_LR, AMS_EPS = 1e-4, 1e-8  # the reference's VP optimizer (`adam_amsgrad`)
+AMS_LR, ADAM_EPS = 1e-4, 1e-8  # the reference's VP optimizer (`adam_amsgrad`)
+ADAM_LR = 1e-3                  # the DQN nets' `optax.adam(1e-3)`
 
 
 def bias_correction(decay: float, count: int) -> float:
@@ -95,20 +108,19 @@ class Yogi:
         self.count = int(count)
 
 
-class AdamAmsgrad:
-    """Adam-amsgrad state (mu, nu, nu_max, count) for a list of parameter
-    tensors, updated in place by `step(grads)`."""
+class Adam:
+    """Adam state (mu, nu, count) for a list of parameter tensors, updated
+    in place by `step(grads)`."""
 
-    def __init__(self, params, lr: float = AMS_LR):
+    def __init__(self, params, lr: float = ADAM_LR):
         self.params = list(params)
-        self.lr, self.eps, self.b1, self.b2 = lr, AMS_EPS, B1, B2
+        self.lr, self.eps, self.b1, self.b2 = lr, ADAM_EPS, B1, B2
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.nu_max = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
-    @torch.no_grad()
-    def step(self, grads):
+    def _corrected_moments(self, grads):
+        """Update mu, nu and the count; return the bias-corrected moments."""
         grads = list(grads)
         mu = torch._foreach_add(torch._foreach_mul(grads, 1 - self.b1),
                                 torch._foreach_mul(self.mu, self.b1))
@@ -116,22 +128,51 @@ class AdamAmsgrad:
                                                    1 - self.b2),
                                 torch._foreach_mul(self.nu, self.b2))
         self.count = min(self.count + 1, INT32_MAX)
-        m_hat = torch._foreach_div(mu, bias_correction(self.b1, self.count))
-        v_hat = torch._foreach_div(nu, bias_correction(self.b2, self.count))
-        nu_max = torch._foreach_maximum(self.nu_max, v_hat)
-        u = torch._foreach_div(m_hat, torch._foreach_add(torch._foreach_sqrt(nu_max),
+        self.mu, self.nu = list(mu), list(nu)
+        return (torch._foreach_div(mu, bias_correction(self.b1, self.count)),
+                torch._foreach_div(nu, bias_correction(self.b2, self.count)))
+
+    def _apply(self, m_hat, second):
+        u = torch._foreach_div(m_hat, torch._foreach_add(torch._foreach_sqrt(second),
                                                          self.eps))
         torch._foreach_add_(self.params, torch._foreach_mul(u, -self.lr))
-        self.mu, self.nu, self.nu_max = list(mu), list(nu), list(nu_max)
+
+    @torch.no_grad()
+    def step(self, grads):
+        self._apply(*self._corrected_moments(grads))
+
+    def state(self):
+        """(mu, nu, count): copies of the moments, and the step count."""
+        return [m.clone() for m in self.mu], [v.clone() for v in self.nu], self.count
+
+    def load(self, mu, nu, count: int):
+        with torch.no_grad():
+            for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
+                dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
+        self.count = int(count)
+
+
+class AdamAmsgrad(Adam):
+    """Adam-amsgrad state (mu, nu, nu_max, count) for a list of parameter
+    tensors, updated in place by `step(grads)`."""
+
+    def __init__(self, params, lr: float = AMS_LR):
+        super().__init__(params, lr)
+        self.nu_max = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads):
+        m_hat, v_hat = self._corrected_moments(grads)
+        self.nu_max = list(torch._foreach_maximum(self.nu_max, v_hat))
+        self._apply(m_hat, self.nu_max)
 
     def state(self):
         """(mu, nu, nu_max, count): copies of the moments, and the step count."""
-        return ([m.clone() for m in self.mu], [v.clone() for v in self.nu],
-                [v.clone() for v in self.nu_max], self.count)
+        mu, nu, count = super().state()
+        return mu, nu, [v.clone() for v in self.nu_max], count
 
     def load(self, mu, nu, nu_max, count: int):
+        super().load(mu, nu, count)
         with torch.no_grad():
-            for dst, src in zip(self.mu + self.nu + self.nu_max,
-                                list(mu) + list(nu) + list(nu_max)):
+            for dst, src in zip(self.nu_max, nu_max):
                 dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
-        self.count = int(count)

@@ -66,6 +66,7 @@ VARIANCE_BOUND = L.VARIANCE_BOUND  # reference `variance_bound`
 DEFAULT_CKPT = "./checkpoints/model_vv_torch.pt"
 VP_DEFAULT_CKPT = "./checkpoints/model_vp_torch.pt"
 DIST_DEFAULT_CKPT = "./checkpoints/model_dist_torch.pt"
+DQN_DEFAULT_CKPT = "./checkpoints/model_dqn_torch.pt"
 
 
 def _f32(x):
@@ -119,6 +120,18 @@ def _vp_state_from_flax(p):
     return sd
 
 
+def _q_state_from_flax(p):
+    """flax QNet or DistQNet param tree (numpy) -> `QNet` / `DistQNet` state
+    dict (torch, float32): the two nets share their layer names and layout."""
+    p = p.get("params", p)
+    sd = {}
+    for i in (1, 2):
+        _conv(sd, p, f"conv{i}")
+    _dense(sd, p, "fc1", (16, 6, sd["conv2.weight"].shape[0]))
+    _dense(sd, p, "fc_q")
+    return sd
+
+
 def params_from_jax(params_np, ubound, lbound):
     """flax VV params (nested dict of numpy arrays, with or without the
     top-level "params" key) -> (state_dict, ubound, lbound) for `VVNet`."""
@@ -135,6 +148,15 @@ def dist_params_from_jax(params_np):
 def vp_params_from_jax(params_np):
     """flax VP params (nested dict of numpy arrays) -> `VPNet` state dict."""
     return _vp_state_from_flax(params_np)
+
+
+def qnet_params_from_jax(params_np):
+    """flax QNet params (nested dict of numpy arrays) -> `QNet` state dict."""
+    return _q_state_from_flax(params_np)
+
+
+# DistQNet's layer names and layout are QNet's (16 filters, a 7 x atoms head)
+distqnet_params_from_jax = qnet_params_from_jax
 
 
 def _find_moments(s, fields):
@@ -181,10 +203,21 @@ def vp_opt_state_from_jax(opt_state_np):
             int(np.asarray(st["count"])))
 
 
+def adam_opt_state_from_jax(opt_state_np):
+    """The DQN nets' optax.adam state (`ScaleByAdamState`, or its flax state
+    dict) -> (mu, nu state dicts in `QNet` / `DistQNet`'s layout, count)."""
+    st = _find_moments(opt_state_np, ("mu", "nu"))
+    if st is None:
+        raise ValueError("no Adam moments (mu, nu) in this optimizer state")
+    return (_q_state_from_flax(st["mu"]), _q_state_from_flax(st["nu"]),
+            int(np.asarray(st["count"])))
+
+
 def _read_jax(path: str, kind: str):
     """The JAX package's checkpoint at `path` (flax_msgpack), checked to be
     of the `kind` net ("vv": conv3, fc1 and the bounds; "dist": conv3 and
-    fc1 without bounds; "vp": the norms and heads)."""
+    fc1 without bounds; "vp": the norms and heads; "dqn": conv2 and the Q
+    head)."""
     try:
         blob = flax_msgpack.read_jax_checkpoint(path)
     except (ValueError, pickle.UnpicklingError, EOFError) as e:
@@ -192,7 +225,7 @@ def _read_jax(path: str, kind: str):
                          f"one of the JAX package ({e})") from e
     p = blob["params"].get("params", blob["params"])
     want = {"vv": ("conv3", "fc1", "fc_out"), "dist": ("conv3", "fc1", "fc_out"),
-            "vp": ("norm1", "fc_v", "policy")}[kind]
+            "vp": ("norm1", "fc_v", "policy"), "dqn": ("conv2", "fc1", "fc_q")}[kind]
     if not all(k in p for k in want) or (kind != "vp" and ("ubound" in blob) != (kind == "vv")):
         raise ValueError(f"{path} is a JAX checkpoint of another net (params "
                          f"{sorted(p)}), not of the {kind} net")
