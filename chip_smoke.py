@@ -111,7 +111,33 @@ of the JAX package. Phases, each printing its elapsed seconds:
    envs and the ring equal, losses within rtol 1e-5), then one update in
    parts (loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5 x the largest on
    a minibatch both devices agree on at every ReLU, Adam fed the card's
-   gradients rtol 1e-6 / atol 1e-7).
+   gradients rtol 1e-6 / atol 1e-7). The small phase also holds a 3-member
+   ensemble's two lp moves (the CPU's search fed the card's net outputs, the
+   CPU ensemble's own within the VV net's bounds; integers equal, statistics
+   rtol 1e-6 / atol 1e-5) and its train step (as the VV step's) card vs CPU,
+   and one Bayes-by-backprop (Adam) and one BGD step in parts (losses rtol
+   1e-5, gradients as the DQN update's, the update fed the card's gradients
+   rtol 1e-6 / atol 1e-7, BGD's rtol 1e-5: its inverse softplus cancels);
+22. ensemble: `play --agent_type ValueSimLP --online --ensemble 5` through
+   the CLI main at the CLI's width until ENS_ONLINE_AFTER moves after the
+   first session (cut: sessions of at most ENS_ONLINE_ITERS steps): select,
+   insert and LP backup launch moves x sims times; two profiled moves; the
+   ensemble forward on 448 boards beside one net's and a loop over the
+   members; a train step's device time and launches; then ENS_LEAF_MOVES
+   moves of `play --agent_type ValueSim --ensemble 5` (select, insert and
+   backup), and `train --ensemble 5 --ewc` on the cycle phase's rows (at
+   most ENS_TRAIN_ITERS steps), whose checkpoint must load;
+23. bayes: `BBBVVModel` sessions on the card, Adam and BGD, at batch
+   BAYES_BATCH with BAYES_MC draws, BAYES_ITERS steps each, on the cycle
+   phase's rows: the loss on a fixed minibatch and draws before and after,
+   a step's device time and launches, every sigma positive;
+24. probe double: double-hash probing (TMT_PROBE=double) at the CLI's
+   width, PROBE_MOVES lp moves with the insert kernel and with
+   `--insert_kernel 0`, bit-equal in every tree array; the insert kernel
+   against its plain version under double probing on those trees' lanes
+   (B = 1, 5, 64) and on the edge inputs at B = 1, 5, 64, 67 (torch.equal);
+   the kernel's device time a launch under both modes (the `kernels` line's
+   insert row: `ms_linear_probe`, `ms_double_probe`).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the `kernels` line gives each kernel's launches summed over the
@@ -160,6 +186,14 @@ S2_MOVES = 2               # the s2 phase's moves at the CLI width, after a warm
 S2_PROFILE_SIMS = 4        # the s2 profile's cut of the sims (as vp's and dist's)
 DQN_MOVES = 300            # the dqn phases' moves of `play` with training
 DQN_BENCH_MOVES = 100      # ... and of `play --benchmark --load_model`
+ENS_K = 5                  # the ensemble phase's members (--ensemble 5)
+ENS_ONLINE_ITERS = 2000    # its online run's cut of --train_max_iters (CLI: 50000)
+ENS_ONLINE_AFTER = 2       # moves after the first session
+ENS_ONLINE_MOVE_CAP = 80
+ENS_LEAF_MOVES = 2         # ValueSim --ensemble 5, frozen
+ENS_TRAIN_ITERS = 500      # train --ensemble 5 --ewc's cut of --max_iters (CLI: 100000)
+BAYES_ITERS, BAYES_BATCH, BAYES_MC = 500, 128, 5  # the bayes phase's sessions
+PROBE_MOVES = 5            # the probe double phase's lp moves at the CLI width
 # a stand-in for the VP net: logits s x STUB_LOGIT from the board's cell sum s
 STUB_LOGIT = (0.3, -0.2, 0.11, 0.05, -0.07, 0.17, -0.02)
 # each path's kernel launches, recorded as the path runs (the kernels line)
@@ -797,7 +831,8 @@ def report_episode(driver, episodes):
 def report_profile(torch, driver, wall, moves, label, scale=1.0):
     """Two profiled moves of `driver`: device time by kernel against the
     wall time a move of the unprofiled run. `scale` multiplies the profiled
-    moves' times and launches (a twin with fewer sims, scaled to the run's)."""
+    moves' times and launches (a twin with fewer sims, scaled to the run's).
+    Returns the device ms a move."""
     t = time.perf_counter()
     busy_ms, prof_rows = profile_moves(torch, driver, 2)
     busy_ms *= scale
@@ -810,6 +845,7 @@ def report_profile(torch, driver, wall, moves, label, scale=1.0):
         say(f"  {ms * scale / 2:9.3f} ms/move  {int(n * scale) // 2:6d} launches/move  "
             f"{name[:90]}")
     say(f"phase profile ({label}) took {time.perf_counter() - t:.1f}s")
+    return busy_ms / 2
 
 
 def main() -> int:
@@ -861,6 +897,8 @@ def main() -> int:
     small_err["s2"] = phase_small_s2(torch, mcts, T)
     small_err["dqn, 10 steps"] = phase_small_dqn(torch, False)
     small_err["distdqn, 10 steps"] = phase_small_dqn(torch, True)
+    small_err["ensemble (3 members), 2 lp moves"] = phase_small_ensemble(torch)
+    phase_small_bayes(torch)
     net_err = phase_net(torch)
     vp_net_err = phase_net_vp(torch)
     say(f"phase small: 3 moves x 8 sims (4 for the playouts) at B=4 equal on cuda and cpu "
@@ -1146,7 +1184,10 @@ def main() -> int:
     phase_online(torch, smi)
 
     # ---- 11. the offline cycle through the CLI mains -------------------------
-    phase_cycle(torch, smi)
+    import tempfile
+
+    saved_rows = tempfile.TemporaryDirectory()  # the cycle's saved rows, for 22-23
+    phase_cycle(torch, smi, saved_rows.name)
 
     # ---- 12-13. ApproxPolicyIter, frozen and online ---------------------------
     phase_vp(torch, smi)
@@ -1172,6 +1213,12 @@ def main() -> int:
     phase_dqn(torch, smi, "DQN")
     phase_dqn(torch, smi, "DistDQN")
 
+    # ---- 22-24. the model variants and double-hash probing -----------------------
+    phase_ensemble(torch, smi, saved_rows.name)
+    phase_bayes(torch, smi, saved_rows.name)
+    saved_rows.cleanup()
+    ins_double_ms, ins_linear_ms = phase_probe_double(torch, smi, trees)
+
     def by_path(name):
         return {p: c[name] for p, c in PATH_LAUNCHES.items() if c.get(name)}
 
@@ -1185,6 +1232,9 @@ def main() -> int:
         "profiler_sessions": tries[0], "profiler_launches_seen": tries[1],
     } for (name, src, replaces, _, err, ms_k, ev_k, ms_p, bound, bound_by,
            ms_lib, tries) in rows]
+    for k in kernels:  # the insert under both probe modes, timed side by side
+        if k["name"] == "insert7_walk":
+            k["ms_linear_probe"], k["ms_double_probe"] = ins_linear_ms, ins_double_ms
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     faulthandler.cancel_dump_traceback_later()
@@ -1408,11 +1458,13 @@ def phase_online(torch, smi):
     say(f"phase online took {time.perf_counter() - t:.1f}s")
 
 
-def phase_cycle(torch, smi):
+def phase_cycle(torch, smi, rows_dir):
     """The offline cycle through the CLI mains, in process, at the CLI's
     width: self-play with the saver against without it, the saved rows
     against the driver's device values, an offline session on those rows,
-    self-play with the trained net, and the cycle's plan."""
+    self-play with the trained net, and the cycle's plan. The saved rows
+    are copied into `rows_dir` for the later phases."""
+    import shutil
     import tempfile
 
     import numpy as np
@@ -1508,6 +1560,7 @@ def phase_cycle(torch, smi):
             saving = list(times)
             B = driver.cfg.batch
             rows = DataLoader(os.path.join(data, "data0.rec"))
+            shutil.copy(os.path.join(data, "data0.rec"), rows_dir)
             if len(rows) != CYCLE_MOVES * B:
                 raise AssertionError(f"cycle: {len(rows)} saved rows, want {CYCLE_MOVES * B}")
             # the checked move's rows against what the driver had on the card
@@ -2128,6 +2181,402 @@ def phase_dqn(torch, smi, agent):
             f"{bench.moves / bench_wall:.1f} moves/s, eps {bench.eps}, "
             f"{log.getvalue().count('Episode:')} episodes, nothing trained or stored")
     say(f"phase {label} took {time.perf_counter() - t:.1f}s")
+
+def phase_small_ensemble(torch):
+    """A 3-member ensemble on the card against the CPU: two lp moves (the
+    CPU's search fed the card's net outputs; the CPU ensemble's own outputs
+    on the same boards within the VV net's bounds), then one train step
+    with TF32 switched on around it, each member on a minibatch on which
+    both devices agree at every ReLU (tests/torch_train_cases.py). Returns
+    the moves' values/vars max abs err."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_train_cases import (ensemble_move_on_two_devices, ensemble_step_on_two_devices,
+                                   train_columns)
+
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
+
+    net_err, (ga, gt, ge), (ca, ct, ce), calls = ensemble_move_on_two_devices()
+    close("small[ensemble] actions", ga, ca, True)
+    close("small[ensemble] envs", ge, ce, True)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits",
+              "tbl_h1", "tbl_h2", "tbl_obs", "root"):
+        close(f"small[ensemble] {f}", getattr(gt, f), getattr(ct, f), True)
+    err = max(close("small[ensemble] values", gt.values, ct.values, False),
+              close("small[ensemble] vars", gt.vars_, ct.vars_, False))
+    out = ensemble_step_on_two_devices(EnsembleVVModel(3, seed=5, device="cuda"),
+                                       train_columns(device="cuda"), 128)
+    loss_err = close("ensemble step losses", out["card"][0], out["cpu"][0], False, 1e-5, 0.0)
+    grad_err = max(close("ensemble step grads", a, b, False, 1e-4, 1e-5 * float(b.abs().max()))
+                   for a, b in zip(out["card"][1], out["cpu"][1]))
+    param_err = max(close("ensemble step params", a, b, False, 1e-4, 1e-6)
+                    for a, b in zip(*out["params"]))
+    say(f"  small ensemble: 2 lp moves x 8 sims, {calls} net calls, the ensemble's outputs on "
+        f"the card vs the CPU max abs err value {net_err['value']:.3e}, variance "
+        f"{net_err['variance']:.3e}; a train step (batch 128, TF32 on around it) losses err "
+        f"{loss_err:.3e}, grads {grad_err:.3e} (rtol 1e-4, atol 1e-5 x the largest), params "
+        f"after Yogi {param_err:.3e}; minibatch draws {out['draws']}")
+    return err
+
+
+def phase_small_bayes(torch):
+    """One Bayes-by-backprop (Adam) and one BGD step (mc 5, batch 128) on the
+    card against the CPU, in parts: the loss(es), the gradients on a
+    minibatch on which every draw's net agrees at every ReLU, then the
+    update fed the card's gradients on both devices."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_train_cases import bbb_step_in_parts, train_columns
+
+    from tetris_mcts_tpu_torch.train.bayesian import BBBVVModel
+
+    for method in ("adam", "bgd"):
+        out = bbb_step_in_parts(BBBVVModel(mc_iters=BAYES_MC, seed=2, device="cuda",
+                                           method=method), train_columns(device="cuda"), 128)
+        loss_err = close(f"bbb[{method}] loss", out["card"][0], out["cpu"][0], False, 1e-5, 0.0)
+        grad_err = max(close(f"bbb[{method}] grads", a, b, False, 1e-4,
+                             1e-5 * float(b.abs().max()))
+                       for a, b in zip(out["card"][1], out["cpu"][1]))
+        # BGD's inverse softplus s + log1p(-exp(-s)) cancels at sigma ~0.01:
+        # the devices' expf, an ulp apart, part rho by up to ~1e-5 relative
+        rtol = 1e-6 if method == "adam" else 1e-5
+        param_err = max(close(f"bbb[{method}] update", a, b, False, rtol, 1e-7)
+                        for a, b in zip(*out["params"]))
+        say(f"  small bbb ({method}): loss err {loss_err:.3e}, grads {grad_err:.3e} (rtol 1e-4, "
+            f"atol 1e-5 x the largest), the update fed the card's grads {param_err:.3e} "
+            f"(rtol {rtol:g}, atol 1e-7); minibatch draws {out['draws']}")
+
+
+def phase_ensemble(torch, smi, rows_dir):
+    """The deep ensemble (--ensemble 5) through the CLI mains at the CLI's
+    width: `play --agent_type ValueSimLP --online --ensemble 5` until
+    ENS_ONLINE_AFTER moves after the first session (sessions cut to
+    ENS_ONLINE_ITERS steps), two profiled moves, the ensemble forward on
+    448 boards beside one net's and beside a loop over the members, a
+    train step; then ENS_LEAF_MOVES moves of `play --agent_type ValueSim
+    --ensemble 5` (the backup kernel's path), and `train --ensemble 5 --ewc`
+    on the cycle phase's rows (at most ENS_TRAIN_ITERS steps)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.cli import play, train
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
+    from tetris_mcts_tpu_torch.train.trainer import VVModel
+
+    t = time.perf_counter()
+    step = SelfPlayDriver.step
+    walls, totals, session = [], [], {}
+
+    def stepping(self):
+        t0 = time.perf_counter()
+        step(self)
+        walls.append(time.perf_counter() - t0)
+        totals.append(self._prev_total)
+        if "at" not in session and self.n_trains:
+            session["at"] = len(walls)
+        if len(walls) - session.get("at", 10**9) >= ENS_ONLINE_AFTER or \
+                len(walls) >= ENS_ONLINE_MOVE_CAP:
+            raise KeyboardInterrupt  # play's interrupt path: the final saves run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ens.pt")
+        log = io.StringIO()
+        SelfPlayDriver.step = stepping
+        reset_launches()
+        try:
+            with contextlib.redirect_stderr(log):
+                driver = play.main(["--agent_type", "ValueSimLP", "--online", "--ensemble",
+                                    str(ENS_K), "--train_max_iters", str(ENS_ONLINE_ITERS),
+                                    "--checkpoint", ckpt])
+        finally:
+            SelfPlayDriver.step = step
+        torch.cuda.synchronize()
+        launches = record("ensemble", read_launches())
+        model, cfg = driver.model, driver.cfg
+        moves = len(walls)
+        if "at" not in session:
+            raise AssertionError(f"ensemble: no training session in {moves} moves "
+                                 f"({totals[-1]} rows harvested)")
+        want = moves * cfg.sims
+        check_launches("ensemble path", launches,
+                       {"select_walk": want, "insert7_walk": want, "lp_backup_walk": want})
+        if not (isinstance(model, EnsembleVVModel) and model.n_models == ENS_K
+                and os.path.isfile(ckpt) and EnsembleVVModel(ENS_K, device="cuda").load(ckpt)):
+            raise AssertionError("ensemble: not a 5-member ensemble, or its checkpoint is "
+                                 "missing or unreadable")
+        sess = [ln for ln in log.getvalue().splitlines() if "Training session" in ln]
+        frozen = [w for i, w in enumerate(walls) if i + 1 != session["at"]]
+        wall = sum(frozen)
+        say(f"phase ensemble (lp, training, --ensemble {ENS_K}): {moves} moves x {cfg.sims} "
+            f"sims at B={cfg.batch}, the first session in move {session['at']} "
+            f"({walls[session['at'] - 1]:.2f}s with it); the other moves "
+            f"{len(frozen) / wall:.2f} moves/s, {len(frozen) * cfg.batch * cfg.sims / wall:.1f} "
+            f"sims/s ({smi}); launches {launches}; {totals[-1]} rows harvested; "
+            f"{' | '.join(sess)}")
+        move_ms = report_profile(torch, driver, wall, len(frozen),
+                                 f"ensemble lp, {ENS_K} members")
+
+        # the forward at the lp width (B x 7 = 448 boards): the port's (the
+        # members' filters side by side), torch.func.vmap over the members,
+        # a loop over them, and one net
+        from torch.func import functional_call, vmap
+
+        imgs = torch.as_tensor(np.random.RandomState(3).randint(-1, 2, (448, 1, 20, 10)),
+                               dtype=torch.float32, device="cuda")
+        nets = [model.member_net(k) for k in range(ENS_K)]
+        combined = lambda out: model.combine(out[..., 0], out[..., 1])
+        forms = {
+            "the port's": model.apply_fn(),
+            "vmap": torch.no_grad()(lambda x: combined(vmap(lambda p: functional_call(
+                nets[0], p, (x, model.ubound, model.lbound)))(model.params))),
+            "a loop over the members": torch.no_grad()(lambda x: combined(torch.stack(
+                [n(x, model.ubound, model.lbound) for n in nets]))),
+            "one net": VVModel(0, "cuda").apply_fn(),
+        }
+        ref = forms["the port's"](imgs)
+        for name in ("vmap", "a loop over the members"):
+            for a, b in zip(forms[name](imgs), ref):
+                close(f"ensemble forward, {name} vs the port's", a, b, False, 1e-5, 1e-4)
+        timed = {}
+        for name, f in forms.items():
+            ms_, n_ = device_ms_all(lambda: f(imgs), 20)
+            timed[name] = (ms_, n_, cuda_ms(lambda: f(imgs), 20))
+        port_ms = timed["the port's"][0] * cfg.sims
+        say(f"  forward on 448 boards ({ENS_K} members): " + "; ".join(
+            f"{name} {ms_:.4f} ms device, {n_:.0f} launches, {call:.4f} ms a call"
+            for name, (ms_, n_, call) in timed.items())
+            + f"; x {cfg.sims} sims the port's forward takes {port_ms:.2f} ms of the move's "
+            f"{move_ms:.2f} ms of device time, one net's {timed['one net'][0] * cfg.sims:.2f} "
+            f"({smi})")
+
+        # a train step at batch 128 (K minibatches) on the ring's newest rows
+        n_rows = min(4096, driver.replay.count.item())
+        newest = (np.arange(driver.replay.idx.item() - n_rows, driver.replay.idx.item())
+                  % cfg.memory_size)
+        states, value, var, weight = driver._training_columns(newest)
+        cols = [states.float()[:, None], value, var, weight / weight.mean()]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        idxs = iter([torch.randint(0, n_rows, (ENS_K, cfg.train_batch), generator=gen,
+                                   device="cuda") for _ in range(43)])
+        st = lambda: model.train_step(cols, next(idxs))
+        for _ in range(3):
+            st()
+        step_ms, step_n = device_ms_all(st, 20)
+        step_call = cuda_ms(st, 20)
+        say(f"  ensemble train_step ({ENS_K} members x batch {cfg.train_batch}): {step_ms:.4f} ms "
+            f"device, {step_n:.0f} kernel launches, {step_call:.4f} ms a call between CUDA "
+            f"events ({smi})")
+
+        # ValueSim --ensemble 5, frozen: the backup kernel's path
+        reset_launches()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            leaf = play.main(["--agent_type", "ValueSim", "--ensemble", str(ENS_K),
+                              "--max_moves", str(ENS_LEAF_MOVES)])
+        torch.cuda.synchronize()
+        leaf_wall = time.perf_counter() - t_run
+        leaf_launches = record("ensemble leaf", read_launches())
+        lw = ENS_LEAF_MOVES * leaf.cfg.sims
+        check_launches("ensemble leaf path", leaf_launches,
+                       {"select_walk": lw, "insert7_walk": lw, "backup_walk": lw})
+        if not bool((leaf.last_stats.child_stats[:, 0].sum(1) > 0).all()):
+            raise AssertionError("ensemble leaf: a root without visits")
+        say(f"  ValueSim --ensemble {ENS_K} (frozen): {ENS_LEAF_MOVES} moves x {leaf.cfg.sims} "
+            f"sims in {leaf_wall:.2f}s with the start-up; launches {leaf_launches}")
+
+        # train --ensemble 5 --ewc on the cycle phase's rows
+        tck = os.path.join(tmp, "ens_train.pt")
+        out = io.StringIO()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            hist = train.main(["--device", "cuda", "--data", os.path.join(rows_dir, "data*.rec"),
+                               "--td", "--weighted", "--weighted_mode", "1",
+                               "--early_stopping", "--validation", "--max_iters",
+                               str(ENS_TRAIN_ITERS), "--ensemble", str(ENS_K), "--ewc",
+                               "--checkpoint", tck, "--dump_dir", os.path.join(tmp, "dump")])
+        train_s = time.perf_counter() - t_run
+        back = EnsembleVVModel(ENS_K, device="cuda")
+        if not (hist and back.load(tck)
+                and all(np.isfinite(h[1]) and np.isfinite(h[2]) for h in hist)):
+            raise AssertionError("ensemble train: no checkpoint, or non-finite losses")
+        trained = [ln for ln in out.getvalue().splitlines() if ln.startswith(("Loaded",
+                                                                             "Trained"))]
+        say(f"  train --ensemble {ENS_K} --ewc: {' | '.join(trained)}; {train_s:.2f}s for the "
+            f"command (the Fisher of {ENS_K} members included); last window loss train "
+            f"{hist[-1][1]:.4f} val {hist[-1][2]:.4f}")
+    say(f"phase ensemble took {time.perf_counter() - t:.1f}s")
+
+
+def phase_bayes(torch, smi, rows_dir):
+    """BBBVVModel sessions on the card, Bayes-by-backprop (Adam) and BGD, at
+    batch BAYES_BATCH with BAYES_MC draws, BAYES_ITERS steps each, on the
+    cycle phase's rows (TD targets, inverse-variance weights): the loss on
+    a fixed minibatch and draws before and after, a step's device time and
+    launches, and every sigma positive and finite at the end."""
+    import numpy as np
+
+    from tetris_mcts_tpu_torch.cli.train import build_targets
+    from tetris_mcts_tpu_torch.models.losses import VARIANCE_BOUND
+    from tetris_mcts_tpu_torch.train.bayesian import BBBVVModel, softplus
+    from tetris_mcts_tpu_torch.utils.data import DataLoader
+
+    t = time.perf_counter()
+    cols = build_targets(DataLoader(os.path.join(rows_dir, "data0.rec")), True, True, 1)
+    dev = [torch.as_tensor(c, device="cuda") for c in cols]
+    dev = [dev[0].float()[:, None], *(c.float() for c in dev[1:])]
+    dev[3] = dev[3] / dev[3].mean()
+    n = dev[0].shape[0]
+    for method in ("adam", "bgd"):
+        m = BBBVVModel(mc_iters=BAYES_MC, seed=0, device="cuda", method=method)
+        m.ubound = torch.stack([dev[1].max(), torch.clamp_min(dev[2].max(),
+                                                              VARIANCE_BOUND)]).float()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        idx = torch.randint(0, n, (BAYES_BATCH,), generator=gen, device="cuda")
+        m.draws.gen.manual_seed(2)
+        eps = m.draws.eps(BAYES_MC)
+        batch = tuple(d[idx] for d in dev)
+
+        def fixed_loss():
+            if method == "adam":
+                return float(m.adam_loss_and_grads(batch, eps)[0])
+            return float(m.draw_grads(batch, eps)[0].mean())
+
+        before = fixed_loss()
+        lines = []
+        t_run = time.perf_counter()
+        hist = m.train_data(cols, batch_size=BAYES_BATCH, iters=BAYES_ITERS, log=lines.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        after = fixed_loss()
+        sig_min = min(float(softplus(m.rho[k]).detach().min()) for k in m.names)
+        if not (np.isfinite(after) and sig_min > 0 and len(hist) == BAYES_ITERS // 100
+                and all(np.isfinite(h[1]) for h in hist)):
+            raise AssertionError(f"bayes ({method}): non-finite loss or a sigma at 0")
+        step = lambda: m.train_step(dev, *m.draws(n, BAYES_BATCH))
+        step_ms, step_n = device_ms_all(step, 20)
+        call = cuda_ms(step, 20)
+        say(f"phase bayes ({method}, mc {BAYES_MC}, batch {BAYES_BATCH}): {BAYES_ITERS} steps on "
+            f"{n} rows in {wall:.2f}s ({BAYES_ITERS / wall:.1f} steps/s); loss on a fixed "
+            f"minibatch and draws {before:.4f} before, {after:.4f} after; logged "
+            f"{[round(h[1], 4) for h in hist]}; smallest sigma {sig_min:.3e}; a step "
+            f"{step_ms:.4f} ms device, {step_n:.0f} kernel launches, {call:.4f} ms a call "
+            f"between CUDA events ({smi})")
+    say(f"phase bayes took {time.perf_counter() - t:.1f}s")
+
+
+def phase_probe_double(torch, smi, lin_trees):
+    """Double-hash probing (TMT_PROBE=double, here `probe_double=True` in the
+    config): PROBE_MOVES lp moves at the CLI's width with the insert kernel,
+    then with `--insert_kernel 0` (bit-equal in every tree array, integer
+    and float); the insert kernel against its plain version under double
+    probing on those trees' first 1, 5 and 64 lanes and on the edge inputs
+    of tests/torch_walk_cases.py at B = 1, 5, 64 and 67 (the 16-slot
+    table); and the kernel's device time a launch under both modes, on
+    trees grown under each (`lin_trees`: the main path's). Returns (double
+    ms, linear ms)."""
+    from pathlib import Path
+
+    from tetris_mcts_tpu_torch.ops import tree_walk
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig, SelfPlayDriver
+    from tetris_mcts_tpu_torch.search import mcts
+    from tetris_mcts_tpu_torch.search import tree as T
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_walk_cases as C
+
+    t = time.perf_counter()
+    cfg = SelfPlayConfig(benchmark=True, probe_double=True)
+    want = PROBE_MOVES * cfg.sims
+    runs = {}
+    for label, kw, launched in (
+            ("probe double", {}, ("select_walk", "insert7_walk", "lp_backup_walk")),
+            ("probe double, insert_kernel 0", {"insert_kernel": False},
+             ("select_walk", "lp_backup_walk"))):
+        driver = SelfPlayDriver(cfg._replace(**kw), device="cuda", log=lambda s: None)
+        torch.cuda.synchronize()
+        reset_launches()
+        t_run = time.perf_counter()
+        acts = []
+        for _ in range(PROBE_MOVES):
+            driver.step()
+            acts.append(driver.last_stats.action)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = record(label, read_launches())
+        check_launches(label, launches, {k: want for k in launched})
+        runs[label] = (driver, torch.stack(acts))
+        say(f"  {label}: {PROBE_MOVES} moves x {cfg.sims} sims at B={cfg.batch} in {wall:.2f}s "
+            f"({wall / PROBE_MOVES * 1e3:.1f} ms a move); launches {launches}")
+    ref, ref_acts = runs["probe double"]
+    plain, plain_acts = runs["probe double, insert_kernel 0"]
+    close("probe double actions", plain_acts, ref_acts, True)
+    for f in ref.trees.__dataclass_fields__:
+        close(f"probe double {f}", getattr(plain.trees, f), getattr(ref.trees, f), True)
+    tcfg = ref.search_cfg.tree
+    trees = ref.trees
+
+    # the kernel against its plain version on the double-probed trees' lanes
+    B, D = cfg.batch, tcfg.max_depth
+    gum, rnd = mcts.TorchPlanes(123, "cuda", tcfg.policy)(B, D)
+    _, _, leafs, _, packed7, _, end7i = tree_walk.select_walk(trees, gum, rnd, tcfg)
+    b = torch.arange(B, device="cuda")
+    can = (~trees.end[b, leafs.long()]) & (trees.cbase[b, leafs.long()] == 0)
+    lane = lambda tt, n: T.Tree(**{f: getattr(tt, f)[:n].clone()
+                                   for f in tt.__dataclass_fields__})
+    for n in (1, 5, 64):
+        tk, tp = lane(trees, n), lane(trees, n)
+        args = (packed7[:n].contiguous(), (end7i[:n] != 0).contiguous(), can[:n].contiguous())
+        close(f"probe double insert obs7 (B={n})", tree_walk.insert_obs7(tk, *args, tcfg),
+              T.insert_obs7_batched(tp, *args, tcfg), True)
+        for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
+            close(f"probe double insert {f} (B={n})", getattr(tk, f), getattr(tp, f), True)
+    def double_stepped(tt, size):
+        """Keys one double-hash step (h2 | 1, when not 1) from their home."""
+        h1, h2 = T.u32(tt.tbl_h1), T.u32(tt.tbl_h2)
+        off = (torch.arange(size, device="cuda").expand_as(h1) - h1) % size
+        step = (h2 | 1) % size
+        return int(((tt.tbl_obs != 0) & (off == step) & (step > 1)).sum())
+
+    ecfg = C.INSERT_CFG._replace(probe_double=True)
+    stepped = 0
+    for n in (1, 5, 64, 67):
+        packed, end, ok = C.insert_case(n, n)
+        tk, tp = C.insert_trees(n, n, "cuda"), C.insert_trees(n, n, "cuda")
+        for r in range(C.INSERT_ROUNDS):
+            a = [torch.as_tensor(x[r], device="cuda") for x in (packed, end, ok)]
+            close(f"probe double edges obs7 (B={n}, call {r})", tree_walk.insert_obs7(tk, *a, ecfg),
+                  T.insert_obs7_batched(tp, *a, ecfg), True)
+            for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
+                close(f"probe double edges {f} (B={n}, call {r})", getattr(tk, f),
+                      getattr(tp, f), True)
+        stepped += double_stepped(tk, ecfg.table_size)
+    if not stepped:
+        raise AssertionError("probe double: no key of the edge tables sits a double-hash "
+                             "step from its home")
+
+    # the kernel's device time a launch under each mode, on trees grown under it
+    ms = {}
+    for mode, tt in (("double", trees), ("linear", lin_trees)):
+        mcfg = tcfg._replace(probe_double=mode == "double")
+        _, _, lf, _, pk, _, e7 = tree_walk.select_walk(tt, gum, rnd, mcfg)
+        ok = (~tt.end[b, lf.long()]) & (tt.cbase[b, lf.long()] == 0) & (
+            tt.n_obs + 7 <= mcfg.max_obs)
+        ins = lambda x: tree_walk.insert_obs7(x, pk, e7 != 0, ok, mcfg)
+        ms[mode], _ = device_ms(ins, 20, "tmt::insert7_kernel", setup=lambda: (tt.clone(),))
+    say(f"phase probe double: --insert_kernel 0 equal to the kernel's run bit for bit (actions, "
+        f"every tree array); the kernel equal to plain on the trees' 1, 5, 64 lanes and on the "
+        f"edge inputs at B = 1, 5, 64, 67 ({stepped} keys of their 16-slot tables a double-hash "
+        f"step from home); insert "
+        f"{ms['double']:.4f} ms device a launch under double probing, {ms['linear']:.4f} under "
+        f"linear ({smi}); in {time.perf_counter() - t:.1f}s")
+    return ms["double"], ms["linear"]
+
 
 
 def walk_edges(torch, tree_walk, T, B=67):

@@ -6,6 +6,7 @@ of each training agent trains, writes its checkpoint and metrics, and
 support is refused by name. The channels and modes of `play`
 (`--printboard` and `--interactive` against the JAX package's output,
 `--endless`, `--low`, `--save_tree`, `--trace`), `train` on saved rows,
+`--ensemble` in `play` (online) and in `train` (with `--ewc`),
 the `cycle` plan against the JAX package's, and one real cycle iteration.
 The VP-net agents: ApproxPolicyIter frozen and online (a session, its
 checkpoint, reloaded), HybridSim, FiniteSim and FullSim, `train --model vp`
@@ -51,11 +52,26 @@ def test_play_runs_episodes_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--ensemble=2"])
-def test_play_refuses_unported_flags(flag, capsys):
+def test_play_refuses_unported_flags(flag, tmp_path, monkeypatch, capsys):
+    """The last reference flag the port refused, --ensemble, now runs: a
+    tiny online ValueSimLP run of a 2-member ensemble trains and writes the
+    ensemble's checkpoint at its default path (run in tmp_path), which
+    --load_model reads back; a flag the reference does not have is still
+    refused by name."""
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
+
+    monkeypatch.chdir(tmp_path)
+    driver = play.main(TINY + ONLINE + ["--agent_type", "ValueSimLP", flag])
+    assert isinstance(driver.model, EnsembleVVModel) and driver.model.n_models == 2
+    assert driver.n_trains >= 1 and driver.model.opt.count > 0
+    ckpt = tmp_path / "checkpoints" / "model_vv_ens_torch.pt"
+    assert ckpt.is_file() and not (tmp_path / "checkpoints" / "model_vv_torch.pt").exists()
+    again = play.main(TINY + [flag, "--load_model", "--ngames", "0"])
+    assert again.model.opt.count == driver.model.opt.count
     with pytest.raises(SystemExit) as exc:
-        play.main(TINY + [flag])
+        play.main(TINY + ["--no_such_flag"])
     assert exc.value.code == 2
-    assert flag.split("=")[0] in capsys.readouterr().err
+    assert "--no_such_flag" in capsys.readouterr().err
 
 
 # agent type -> (evaluator, sims of a --mcts_sims 2 run, low, policy), the
@@ -298,13 +314,27 @@ def test_train_on_saved_rows_then_play_the_trained_net(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--ensemble=2"])
-def test_train_refuses_unported_models(flag, capsys):
+def test_train_refuses_unported_models(flag, tmp_path, monkeypatch, capsys):
+    """`train --ensemble 2 --ewc`, once refused, trains a 2-member ensemble
+    on saved rows, computes one Fisher a member and writes the ensemble's
+    checkpoint at its default path (run in tmp_path); `--model vp` ignores
+    the flag with the reference's message."""
     from tetris_mcts_tpu_torch.cli import train
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
 
-    with pytest.raises(SystemExit) as exc:
-        train.main(["--device", "cpu", flag])
-    assert exc.value.code == 2
-    assert f"{flag.replace('=', ' ')} is not ported yet" in capsys.readouterr().err
+    monkeypatch.chdir(tmp_path)
+    play.main(TINY + ["--batch", "4", "--save", "--save_dir", "data", "--ngames", "50",
+                      "--max_moves", "10"])
+    hist = train.main(["--device", "cpu", "--data", "data/data*.rec", "--td", "--weighted",
+                       "--iters_per_val", "5", "--max_iters", "10", "--batch_size", "8",
+                       "--ewc", "--dump_dir", "dump", flag])
+    out = capsys.readouterr().out
+    assert hist[-1][0] == 10 and "Saving model..." in out
+    m = EnsembleVVModel(2, device="cpu")
+    assert m.load("checkpoints/model_vv_ens_torch.pt") and m.opt.count == 10
+    train.main(["--device", "cpu", "--data", "data/data*.rec", "--model", "vp",
+                "--max_iters", "5", "--iters_per_val", "5", "--batch_size", "8", flag])
+    assert "--ensemble applies to the vv model only; ignored" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("cmd", ["play", "train", "cycle"])

@@ -38,6 +38,18 @@ within rtol 1e-6 / atol 1e-5). DQN adds two: ten steps of each head from
 the same weights and draws against the CPU (actions, envs and the ring
 equal; losses rtol 1e-5), then one update (loss rtol 1e-5, grads rtol 1e-4
 / atol 1e-5 x the largest, Adam fed the card's grads rtol 1e-6 / atol 1e-7).
+The model variants add: two lp moves with a 3-member ensemble against the
+CPU (the CPU's search fed the card's net outputs, the CPU ensemble's own
+outputs held against them within the VV net's bounds; integers equal,
+statistics within rtol 1e-6 / atol 1e-5), one ensemble train step against
+the CPU (as the VV step, each member on a minibatch both devices agree on),
+and one Bayes-by-backprop (Adam) and one BGD step in parts (loss(es) rtol
+1e-5, gradients rtol 1e-4 / atol 1e-5 x the largest on a minibatch every
+draw's net agrees on, the update fed the card's gradients rtol 1e-6 / atol
+1e-7; BGD's rtol 1e-5: its inverse softplus s + log1p(-exp(-s)) cancels at
+sigma ~0.01, so the devices' expf, an ulp apart, part rho by ~1e-6
+relative, 1.35e-6 seen). Double-hash probing adds the insert kernel against its plain
+version at B = 1, 5, 64 and 67 on the grown trees and on the edge inputs.
 """
 
 import numpy as np
@@ -583,3 +595,74 @@ def test_dqn_steps_on_card_match_cpu(card, dist):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
     for a, b in zip(*up["params"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n", [1, 5, 64, 67])
+def test_insert_kernel_double_probing_matches_plain(grown, n):
+    """Double-hash probing (step h2 | 1): the grown trees' first n lanes,
+    then the edge inputs' 16-slot tables, integers and tables equal."""
+    cfg = CFG._replace(probe_double=True)
+    rng = np.random.RandomState(1)
+    tk, tp = lanes(grown, n).clone(), lanes(grown, n).clone()
+    for r in range(3):
+        packed7 = torch.as_tensor(rng.randint(0, 4, (n, 7, 20)).astype(np.int32), device="cuda")
+        end7 = torch.as_tensor(rng.rand(n, 7) < 0.2, device="cuda")
+        ok = torch.as_tensor(rng.rand(n) < 0.8, device="cuda")
+        W.reset_launches()
+        assert torch.equal(W.insert_obs7(tk, packed7, end7, ok, cfg),
+                           T.insert_obs7_batched(tp, packed7, end7, ok, cfg)), r
+        assert W.LAUNCHES["insert7_walk"] == 1
+        for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
+            assert torch.equal(getattr(tk, f), getattr(tp, f)), (r, f)
+    packed7, end7, ok = C.insert_case(n, n)
+    ecfg = C.INSERT_CFG._replace(probe_double=True)
+    tk, tp = C.insert_trees(n, n, "cuda"), C.insert_trees(n, n, "cuda")
+    for r in range(C.INSERT_ROUNDS):
+        args = [torch.as_tensor(x[r], device="cuda") for x in (packed7, end7, ok)]
+        assert torch.equal(W.insert_obs7(tk, *args, ecfg),
+                           T.insert_obs7_batched(tp, *args, ecfg)), r
+        for f in ("tbl_h1", "tbl_h2", "tbl_obs", "n_obs", "obs_end", "obs_bits"):
+            assert torch.equal(getattr(tk, f), getattr(tp, f)), (r, f)
+
+
+def test_ensemble_move_on_card_matches_cpu(card):
+    from torch_train_cases import ensemble_move_on_two_devices
+
+    err, (ga, gt, ge), (ca, ct, ce), calls = ensemble_move_on_two_devices()
+    assert calls == 16
+    assert torch.equal(ga.cpu(), ca) and torch.equal(ge.cpu(), ce)
+    for f in ("cbase", "nstat", "end", "n_nodes", "visits", "n_obs", "obs_bits", "tbl_h1",
+              "tbl_h2", "tbl_obs", "root"):
+        assert torch.equal(getattr(gt, f).cpu(), getattr(ct, f)), f
+    for f in ("values", "vars_"):
+        torch.testing.assert_close(getattr(gt, f).cpu(), getattr(ct, f), rtol=1e-6, atol=1e-5)
+
+
+def test_ensemble_train_step_on_card_matches_cpu(card):
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
+    from torch_train_cases import ensemble_step_on_two_devices, train_columns
+
+    out = ensemble_step_on_two_devices(EnsembleVVModel(3, seed=5, device="cuda"),
+                                       train_columns(device="cuda"), 128)
+    torch.testing.assert_close(out["card"][0].cpu(), out["cpu"][0], rtol=1e-5, atol=0)
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+    for a, b in zip(*out["params"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["adam", "bgd"])
+def test_bbb_step_on_card_matches_cpu_in_parts(card, method):
+    from tetris_mcts_tpu_torch.train.bayesian import BBBVVModel
+    from torch_train_cases import bbb_step_in_parts, train_columns
+
+    out = bbb_step_in_parts(BBBVVModel(mc_iters=5, seed=2, device="cuda", method=method),
+                            train_columns(device="cuda"), 128)
+    torch.testing.assert_close(out["card"][0].cpu(), out["cpu"][0], rtol=1e-5, atol=0)
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+    # BGD's inverse softplus s + log1p(-exp(-s)) cancels at sigma ~0.01: the
+    # devices' expf, an ulp apart, part rho by up to ~1e-5 relative
+    rtol = 1e-6 if method == "adam" else 1e-5
+    for a, b in zip(*out["params"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=rtol, atol=1e-7)

@@ -36,8 +36,9 @@ def test_kernel_modules_are_checked():
     """Every module that wraps a kernel, the move programs that drive
     them (the VP, distributional and stochastic searches' too), the DQN
     agent, the training, replay and metrics modules of
-    online self-play, the offline cycle's savers, watchdog and commands,
-    and the JAX checkpoint reader are among the sources checked above."""
+    online self-play (the ensemble and the Bayesian net too), the offline
+    cycle's savers, watchdog and commands, and the JAX checkpoint reader
+    are among the sources checked above."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py", "ops/bench_walk.py",
                 "search/mcts.py", "search/tree.py", "runtime/selfplay.py", "cli/play.py",
@@ -45,7 +46,7 @@ def test_kernel_modules_are_checked():
                 "obs/metrics.py", "utils/data.py", "runtime/watchdog.py", "cli/train.py",
                 "cli/cycle.py", "cli/replay.py", "cli/__init__.py", "search/vp.py",
                 "search/distributional.py", "train/flax_msgpack.py", "search/stochastic.py",
-                "runtime/dqn.py"):
+                "runtime/dqn.py", "train/ensemble.py", "train/bayesian.py"):
         assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
 
 

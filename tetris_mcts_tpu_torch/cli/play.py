@@ -32,7 +32,11 @@ session and at the end (`--checkpoint`, the port's own format; its
 default is the VV net's `train/trainer.DEFAULT_CKPT`, redirected to
 `VP_DEFAULT_CKPT` for the VP-net agents and `DIST_DEFAULT_CKPT` for
 DistValueSim, `cli.resolve_ckpt`); `--load_model` reads it first, a
-checkpoint of the JAX package too. `--low` defaults as in the reference:
+checkpoint of the JAX package too. `--ensemble K` (K >= 2) plays and trains
+a K-member deep ensemble of VV nets (`train/ensemble.py`; its checkpoint
+defaults to `ENS_DEFAULT_CKPT`) where the agent runs a VV net (the lp, leaf
+and rollout agents and ValueSim2, as the reference's branch); the VP,
+distributional and DQN agents ignore it. `--low` defaults as in the reference:
 10 under bayes, 5 for Vanilla/VanillaC and DistValueSim, else 1. A
 reference flag this port does not read is refused with a message that
 names it.
@@ -138,6 +142,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump_dir", default="",
                    help="write dump.npz of each session's training set here "
                         "('' = off)")
+    p.add_argument("--ensemble", type=int, default=0,
+                   help="K-member deep ensemble of VV nets (train/ensemble.py); 0 = one "
+                        "net. The VV-net agents only")
     p.add_argument("--min_visits", type=int, default=25)
     p.add_argument("--acc_policy", type=int, default=-1, choices=(-1, 0, 1, 2, 3),
                    help="-1: growth-gated ring; 0-3: the C++ agent's "
@@ -331,6 +338,7 @@ def main(argv=None):
     from tetris_mcts_tpu_torch.runtime.selfplay import (DistSelfPlayDriver, S2SelfPlayDriver,
                                                         SelfPlayConfig, SelfPlayDriver,
                                                         VPSelfPlayDriver)
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
     from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -404,6 +412,9 @@ def main(argv=None):
         elif evaluator == "dist":
             model = DistModel(seed=args.seed, device=args.device,
                               checkpoint_path=resolve_ckpt(args.checkpoint, "dist"))
+        elif args.ensemble > 0:
+            model = EnsembleVVModel(args.ensemble, args.seed, args.device,
+                                    checkpoint_path=resolve_ckpt(args.checkpoint, "ens"))
         else:
             model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint)
         if args.load_model:

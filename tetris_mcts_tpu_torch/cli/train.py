@@ -22,10 +22,11 @@ default and no grad-norm watchdog. `--model dist` trains the
 distributional net on [states, target distribution, weight]: the targets
 (value, variance) projected onto its `--atoms` bins on [0, `--vmax`] as a
 normalised Gaussian pmf (`gaussian_dist_targets`), with Yogi at lr 1e-3
-and no grad-norm watchdog. `--ewc` and `--loss_type` apply to the VV net
-only and are ignored with a message, as in the reference. The VP and dist
-checkpoints default to their nets' own (`cli.resolve_ckpt`). `--ensemble
-K` is refused by name.
+and no grad-norm watchdog. `--ensemble K` (K >= 2) trains a K-member deep
+ensemble of VV nets (`train/ensemble.py`), with `--ewc` one Fisher a
+member. `--ewc`, `--loss_type` and `--ensemble` apply to the VV net only
+and are ignored with a message, as in the reference. The VP, dist and
+ensemble checkpoints default to their nets' own (`cli.resolve_ckpt`).
 
     python -m tetris_mcts_tpu_torch train --td --weighted --early_stopping --validation
 """
@@ -70,7 +71,8 @@ def build_parser():
     p.add_argument("--new", action="store_true",
                    help="train a fresh model even with --load_model")
     p.add_argument("--model", default="vv", choices=("vv", "vp", "dist"))
-    p.add_argument("--ensemble", type=int, default=0)
+    p.add_argument("--ensemble", type=int, default=0,
+                   help="K-member deep ensemble of VV nets (0 = one net; vv model only)")
     p.add_argument("--atoms", type=int, default=50, help="bins of the dist net (--model dist)")
     p.add_argument("--vmax", type=float, default=1000.0,
                    help="the dist net's support is [0, vmax] (--model dist)")
@@ -148,12 +150,11 @@ def main(argv=None):
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"not supported by the port yet: {' '.join(unknown)}")
-    if args.ensemble > 0:
-        parser.error(f"--ensemble {args.ensemble} is not ported yet (one vv net)")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error(f"--device {args.device}: no CUDA device is available "
                      "(pass --device cpu to train on the CPU)")
     from tetris_mcts_tpu_torch.cli import resolve_ckpt
+    from tetris_mcts_tpu_torch.train.ensemble import EnsembleVVModel
     from tetris_mcts_tpu_torch.train.trainer import DistModel, VPModel, VVModel
     from tetris_mcts_tpu_torch.utils.data import DataLoader, LossSaver
 
@@ -183,7 +184,8 @@ def main(argv=None):
 
     vv = args.model == "vv"
     if not vv:
-        for flag, on in (("--ewc", args.ewc), ("--loss_type", args.loss_type != "kldiv")):
+        for flag, on in (("--ewc", args.ewc), ("--loss_type", args.loss_type != "kldiv"),
+                         ("--ensemble", args.ensemble > 0)):
             if on:
                 print(f"{flag} applies to the vv model only; ignored", flush=True)
     if vp:
@@ -194,6 +196,12 @@ def main(argv=None):
         model = DistModel(args.atoms, args.seed, args.device,
                           checkpoint_path=resolve_ckpt(args.checkpoint, "dist"),
                           lr=1e-3 if args.lr is None else args.lr, weighted=args.weighted)
+    elif args.ensemble > 0:
+        model = EnsembleVVModel(args.ensemble, args.seed, args.device,
+                                checkpoint_path=resolve_ckpt(args.checkpoint, "ens"),
+                                loss_type=args.loss_type, weighted=args.weighted,
+                                lr=1e-3 if args.lr is None else args.lr, ewc=args.ewc,
+                                ewc_lambda=args.ewc_lambda)
     else:
         model = VVModel(args.seed, args.device, checkpoint_path=args.checkpoint,
                         loss_type=args.loss_type, weighted=args.weighted,

@@ -292,7 +292,7 @@ insert7_kernel(const uint32_t* __restrict__ packed7,
                const bool* __restrict__ end7, const bool* __restrict__ ok,
                uint32_t* tbl_h1, uint32_t* tbl_h2, int* tbl_obs, int* n_obs,
                bool* obs_end, uint32_t* obs_bits, int* obs7, int B, int T,
-               int M) {
+               int M, int probe_double) {
   __shared__ InsertSmem smem[kWalkWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -318,6 +318,9 @@ insert7_kernel(const uint32_t* __restrict__ packed7,
       s2 += w * kHK2[r];
     }
     const uint32_t h1 = mix32(s1), h2 = mix32(s2);
+    // double hashing steps by h2 | 1 (odd, so coprime with the
+    // power-of-two table: the sequence visits every slot), else by 1
+    const uint32_t step = probe_double ? (h2 | 1u) : 1u;
     const unsigned same =
         __match_any_sync(kActionLanes, ((unsigned long long)h2 << 32) | h1);
     const bool rep = __ffs(same) - 1 == lane;  // lowest action of its key
@@ -361,7 +364,7 @@ insert7_kernel(const uint32_t* __restrict__ packed7,
         placed = true;
       }
       nobs += __popc(__ballot_sync(kActionLanes, won));
-      if (!placed && occ && !match) slot = (slot + 1u) & mask;
+      if (!placed && occ && !match) slot = (slot + step) & mask;
       __syncwarp(kActionLanes);  // this round's stores before the next loads
     }
     if (lane == 0) n_obs[b] = nobs;
@@ -794,12 +797,12 @@ int select_walk(const void* cbase, const void* nstat, const void* visits,
 int insert7_walk(const void* packed7, const void* end7, const void* ok,
                  void* tbl_h1, void* tbl_h2, void* tbl_obs, void* n_obs,
                  void* obs_end, void* obs_bits, void* obs7, int B, int T,
-                 int M, void* stream) {
+                 int M, int probe_double, void* stream) {
   const int grid = (B + kWalkWarps - 1) / kWalkWarps;
   insert7_kernel<<<grid, kWalkWarps * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)packed7, (const bool*)end7, (const bool*)ok,
       (uint32_t*)tbl_h1, (uint32_t*)tbl_h2, (int*)tbl_obs, (int*)n_obs,
-      (bool*)obs_end, (uint32_t*)obs_bits, (int*)obs7, B, T, M);
+      (bool*)obs_end, (uint32_t*)obs_bits, (int*)obs7, B, T, M, probe_double);
   return (int)cudaGetLastError();
 }
 

@@ -61,7 +61,7 @@ LIBRARIES = {
     "tree_walk": Library(
         "tree_walk.cu", ("env_packed.cuh",), _BASE_FLAGS + ("--fmad=false",), {
             "select_walk": [_P] * 16 + [_I] * 9 + [_P],
-            "insert7_walk": [_P] * 10 + [_I] * 3 + [_P],
+            "insert7_walk": [_P] * 10 + [_I] * 4 + [_P],
             "lp_backup_walk": [_P] * 11 + [_I] * 4 + [_F, _P],
             "backup_walk": [_P] * 8 + [_I] * 4 + [_F, _P],
             "bench_walk": [_P] * 7 + [_I] * 3 + [_P],

@@ -202,7 +202,8 @@ def select_walk(trees: T.Tree, gumbels, rnd, cfg: T.TreeConfig):
 
 def insert_obs7(trees: T.Tree, packed7, end7, ok, cfg: T.TreeConfig):
     """Find-or-create the obs ids of every tree's 7 children, hashing,
-    probing and writing the fresh ids' obs rows; the plain version is
+    probing (linearly, or by double hashing under `cfg.probe_double`) and
+    writing the fresh ids' obs rows; the plain version is
     `tree.insert_obs7_batched`. packed7 (B, 7, 20) int32, end7 (B, 7) bool,
     ok (B,) bool -> obs7 (B, 7) int32; the tree is updated in place."""
     if not _on_cuda(trees.cbase):
@@ -224,7 +225,7 @@ def insert_obs7(trees: T.Tree, packed7, end7, ok, cfg: T.TreeConfig):
     obs7 = torch.empty(B, N_ACTIONS, dtype=torch.int32, device=packed7.device)
     _launch("insert7_walk", packed7, end7, ok, trees.tbl_h1, trees.tbl_h2,
             trees.tbl_obs, trees.n_obs, trees.obs_end, trees.obs_bits, obs7,
-            B, Tsz, M)
+            B, Tsz, M, int(cfg.probe_double))
     return obs7
 
 

@@ -112,6 +112,7 @@ class SelfPlayConfig(NamedTuple):
     allow_clamp: bool = False      # accept pools too small for one move
     select_kernel: bool = True     # False: the plain select walk (--select_kernel 0)
     insert_kernel: bool = True     # False: the plain insert (--insert_kernel 0)
+    probe_double: bool = T.PROBE_DOUBLE  # double-hash probing (TMT_PROBE=double)
     checkpoint_each_train: bool = False  # save the model after each session
     dump_dir: str = ""             # write dump.npz of each session's set
     seed: int = 0
@@ -617,7 +618,8 @@ def tree_config(cfg: SelfPlayConfig) -> TreeConfig:
         max_depth=cfg.max_depth, gamma=cfg.gamma, policy=cfg.policy, low=cfg.low,
         env=EnvConfig(actions_per_drop=cfg.actions_per_drop, scoring=cfg.scoring,
                       randomizer=cfg.randomizer),
-        select_kernel=cfg.select_kernel, insert_kernel=cfg.insert_kernel)
+        select_kernel=cfg.select_kernel, insert_kernel=cfg.insert_kernel,
+        probe_double=cfg.probe_double)
 
 
 def search_config(cfg: SelfPlayConfig, evaluator: str | None = None) -> SearchConfig:

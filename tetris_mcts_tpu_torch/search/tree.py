@@ -15,13 +15,19 @@ Differences from the reference, all in representation only:
   walk kernels write the (B, M) statistics and (B, T) tables in place, and
   a copy of the 34 MB tree state per simulation would buy nothing.
 
-Probing is linear (+1); the reference's `TMT_PROBE=double` mode is not
-ported. The single-key insert of `alloc_node` probes a window of
-`PROBE_ROUNDS` slots at once, the bound the insert kernel uses.
+Probing is linear (+1) by default; `TMT_PROBE=double` (the reference's
+switch, read once, into `TreeConfig.probe_double`'s default) selects double
+hashing: key (h1, h2) starts at slot h1 and steps by h2 | 1, odd and so
+coprime with the power-of-two table, so the sequence still visits every
+slot. Every probe site (the inserts here and the insert kernel) takes its
+step from the config, so one process can run both modes. The single-key
+insert of `alloc_node` probes a window of `PROBE_ROUNDS` slots at once,
+the bound the insert kernel uses.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, fields
 from typing import NamedTuple
 
@@ -35,6 +41,8 @@ from tetris_mcts_tpu_torch.search.quantiles import bayes_quantile, norm_quantile
 
 N_ACTIONS = 7
 PROBE_ROUNDS = 128  # the reference insert kernel's _INSERT_ROUNDS
+# the reference's probe-mode switch: "double" selects double hashing
+PROBE_DOUBLE = os.environ.get("TMT_PROBE", "linear") == "double"
 
 
 class TreeConfig(NamedTuple):
@@ -50,6 +58,7 @@ class TreeConfig(NamedTuple):
     env: EnvConfig = EnvConfig()
     select_kernel: bool = True  # the select kernel, else the plain walk
     insert_kernel: bool = True  # the insert kernel, else the plain insert
+    probe_double: bool = PROBE_DOUBLE  # probe step h2 | 1, else 1
 
 
 @dataclass
@@ -127,6 +136,12 @@ def _hash_packed(packed):
 # obs-table insert
 # ---------------------------------------------------------------------------
 
+def probe_step(h2, cfg: TreeConfig):
+    """Each key's slot increment (int64 u32 values, h2's shape): h2 | 1
+    under double hashing, else 1."""
+    return h2 | 1 if cfg.probe_double else torch.ones_like(h2)
+
+
 def _write_obs(trees: Tree, o, packed, end, new):
     """obs_end[o] = end and obs_bits[:, o] = packed where `new` (B,)."""
     b = _rows(o)
@@ -139,14 +154,15 @@ def _write_obs(trees: Tree, o, packed, end, new):
 def _insert_obs(trees: Tree, packed, end, ok, cfg: TreeConfig):
     """Find-or-create one obs slot per tree (the reference `_insert_obs`).
     packed (B, 20) int32, end/ok (B,) bool. Returns obs ids (B,) int32;
-    0 when not created and not found. The probe looks at PROBE_ROUNDS slots
-    from the key's home slot in one gather; a key with neither a match nor
-    an empty slot there gets 0, as the insert kernel gives when its rounds
-    run out."""
+    0 when not created and not found. The probe looks at the PROBE_ROUNDS
+    slots of the key's sequence (home slot h1, then `probe_step` apart) in
+    one gather; a key with neither a match nor an empty slot there gets 0,
+    as the insert kernel gives when its rounds run out."""
     T = cfg.table_size
     h1, h2 = _hash_packed(packed)
     b = _rows(h1)[:, None]
-    slots = (h1[:, None] + torch.arange(PROBE_ROUNDS, device=h1.device)) & (T - 1)
+    rounds = torch.arange(PROBE_ROUNDS, device=h1.device)
+    slots = (h1[:, None] + rounds * probe_step(h2, cfg)[:, None]) & (T - 1)
     tid = trees.tbl_obs[b, slots]
     match = (u32(trees.tbl_h1[b, slots]) == h1[:, None]) & (
         u32(trees.tbl_h2[b, slots]) == h2[:, None]) & (tid != 0)
@@ -178,8 +194,8 @@ def insert_obs7_batched(trees: Tree, packed7, end7, ok, cfg: TreeConfig):
     and when distinct keys contend for one slot the LAST contending action
     wins, as in the reference kernel's unrolled writes; winners get ids
     n_obs + their rank in action order; keys that meet an empty slot with
-    the pool full get obs 0; the rest advance one slot. At most
-    PROBE_ROUNDS rounds run; a key still unplaced then keeps obs 0.
+    the pool full get obs 0; the rest advance by their `probe_step`. At
+    most PROBE_ROUNDS rounds run; a key still unplaced then keeps obs 0.
 
     packed7 (B, 7, 20) int32, end7 (B, 7) bool, ok (B,) bool.
     Returns obs7 (B, 7) int32; the tree is updated in place."""
@@ -193,6 +209,7 @@ def insert_obs7_batched(trees: Tree, packed7, end7, ok, cfg: TreeConfig):
     rep = ~(same & (a7[:, None] > a7[None, :])).any(2)
     b = _rows(h1)[:, None]
     slot = h1 & (T - 1)
+    step = probe_step(h2, cfg)
     placed = (~ok)[:, None].expand(B, N_ACTIONS).clone()
     obs = torch.zeros(B, N_ACTIONS, dtype=torch.int32, device=dev)
     n_obs0 = trees.n_obs.clone()
@@ -227,7 +244,7 @@ def insert_obs7_batched(trees: Tree, packed7, end7, ok, cfg: TreeConfig):
         obs = torch.where(won, ids, obs)
         placed |= won
         trees.n_obs += won.sum(1, dtype=torch.int32)
-        slot = torch.where(~placed & occupied & ~match, (slot + 1) & (T - 1), slot)
+        slot = torch.where(~placed & occupied & ~match, (slot + step) & (T - 1), slot)
 
     first = ok[:, None] & (obs >= n_obs0[:, None]) & rep
     for a in range(N_ACTIONS):

@@ -1,6 +1,7 @@
 """The optimizers, written by hand (counterpart of the reference package's
-`train/optim.py`): `Yogi` for the VV net, `AdamAmsgrad` for the VP net and
-`Adam` for the DQN nets.
+`train/optim.py`): `Yogi` for the VV net, `AdamAmsgrad` for the VP net,
+`Adam` for the DQN nets and the Bayesian net, and the library surface no
+CLI selects: `RAdam`, `NSGD`, `SNGD` and `make(name, params)`.
 
 `Yogi` with L2 weight decay is the optax chain `add_decayed_weights(wd)`
 then `optax.yogi(lr, eps=eps)`. One update, for every parameter p with gradient g, in optax's order:
@@ -37,8 +38,21 @@ The running maximum is of the bias-corrected second moment, as optax takes
 it; `torch.optim.Adam(amsgrad=True)` keeps the maximum of the uncorrected
 moment and corrects after, a different update.
 
-The bias corrections are float32 scalars computed on the host from the
-integer `count`, so a step reads nothing back from the device. The updates
+`RAdam` is `optax.radam(lr)` (b1 0.9, b2 0.999, eps 1e-8, threshold 5):
+Adam's moments and bias corrections, then, with rho_inf = 2 / (1 - b2) - 1
+and rho = rho_inf - 2 count b2^count / (1 - b2^count),
+
+    p = p + -lr * r * m_hat / (sqrt(v_hat) + eps)   where rho >= 5 (rectified),
+    p = p + -lr * m_hat                              otherwise,
+
+r = sqrt((rho - 4)(rho - 2) rho_inf / ((rho_inf - 4)(rho_inf - 2) rho)).
+
+`NSGD` steps by -lr * g / (||g|| + eps) with the global norm over all
+parameters, `SNGD` by -lr * g / (||g|| + eps) with each tensor's own norm
+(eps 1e-8); neither keeps state.
+
+The bias corrections, rho and r are float32 scalars computed on the host
+from the integer `count`, so a step reads nothing back from the device. The updates
 run as `torch._foreach_*` ops over all parameters, one launch per op on a
 card, not one per parameter.
 """
@@ -55,6 +69,8 @@ LR, EPS, WEIGHT_DECAY, B1, B2, INITIAL_ACCUMULATOR = 1e-3, 1e-3, 1e-3, 0.9, 0.99
 
 AMS_LR, ADAM_EPS = 1e-4, 1e-8  # the reference's VP optimizer (`adam_amsgrad`)
 ADAM_LR = 1e-3                  # the DQN nets' `optax.adam(1e-3)`
+RADAM_THRESHOLD = 5.0           # optax.radam's variance-tractability threshold
+NSGD_EPS = 1e-8
 
 
 def bias_correction(decay: float, count: int) -> float:
@@ -176,3 +192,74 @@ class AdamAmsgrad(Adam):
         with torch.no_grad():
             for dst, src in zip(self.nu_max, nu_max):
                 dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
+
+
+def radam_rectifier(count: int):
+    """RAdam's rectifier r at step `count` (a float32 value), or None where
+    rho < RADAM_THRESHOLD (the unrectified step), computed as the JAX
+    package's compiled optax.radam computes it: b2^count taken in float64
+    and rounded once (as `bias_correction`; XLA's float32 pow agrees on all
+    but 2 of the first 20000 counts), then rho and r one float32 operation
+    at a time, in optax's order; the constant (rho_inf - 4)(rho_inf - 2) is
+    a float64 product rounded once, as Python folds it before it meets the
+    float32 rho. rho = rho_inf - x cancels (x ~ 1992 at count 7), so rho
+    carries the float32 rounding of x, and of b2^count through it: the
+    power taken by repeated float32 products instead (eager optax's integer
+    power) moves r by 0.3% at count 7."""
+    f = np.float32
+    b2t = f(np.float64(f(B2)) ** int(count))
+    rho_inf = 2.0 / (1.0 - B2) - 1.0
+    rho = f(rho_inf) - f(2 * count) * b2t / (f(1.0) - b2t)
+    if not rho >= RADAM_THRESHOLD:
+        return None
+    r = np.sqrt((rho - f(4.0)) * (rho - f(2.0)) * f(rho_inf)
+                / (f((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
+    return float(r)
+
+
+class RAdam(Adam):
+    """RAdam state (mu, nu, count) for a list of parameter tensors, updated
+    in place by `step(grads)` (optax.radam)."""
+
+    @torch.no_grad()
+    def step(self, grads):
+        m_hat, v_hat = self._corrected_moments(grads)
+        r = radam_rectifier(self.count)
+        if r is not None:
+            u = torch._foreach_div(torch._foreach_mul(m_hat, r), torch._foreach_add(
+                torch._foreach_sqrt(v_hat), self.eps))
+        else:
+            u = m_hat
+        torch._foreach_add_(self.params, torch._foreach_mul(u, -self.lr))
+
+
+class NSGD:
+    """Normalised-gradient SGD over the global norm: p += -lr g / (||g|| +
+    eps), no state."""
+
+    def __init__(self, params, lr: float = LR, eps: float = NSGD_EPS):
+        self.params, self.lr, self.eps = list(params), lr, eps
+
+    @torch.no_grad()
+    def step(self, grads):
+        grads = list(grads)
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = self.lr / (gnorm + self.eps)
+        torch._foreach_add_(self.params, torch._foreach_mul(grads, -scale))
+
+
+class SNGD(NSGD):
+    """Normalised-gradient SGD over each tensor's own norm: p += -lr g /
+    (||g|| + eps), no state."""
+
+    @torch.no_grad()
+    def step(self, grads):
+        for p, g in zip(self.params, grads):
+            p.add_(g * -self.lr / (torch.linalg.vector_norm(g) + self.eps))
+
+
+def make(name: str, params, **kw):
+    """The optimizer of the reference's name over `params`: yogi,
+    adam_amsgrad, radam, nsgd or sngd."""
+    return {"yogi": Yogi, "adam_amsgrad": AdamAmsgrad, "radam": RAdam, "nsgd": NSGD,
+            "sngd": SNGD}[name](params, **kw)

@@ -64,6 +64,7 @@ from tetris_mcts_tpu_torch.train.optim import AMS_LR, AdamAmsgrad, Yogi
 
 VARIANCE_BOUND = L.VARIANCE_BOUND  # reference `variance_bound`
 DEFAULT_CKPT = "./checkpoints/model_vv_torch.pt"
+ENS_DEFAULT_CKPT = "./checkpoints/model_vv_ens_torch.pt"
 VP_DEFAULT_CKPT = "./checkpoints/model_vp_torch.pt"
 DIST_DEFAULT_CKPT = "./checkpoints/model_dist_torch.pt"
 DQN_DEFAULT_CKPT = "./checkpoints/model_dqn_torch.pt"
@@ -232,6 +233,16 @@ def _read_jax(path: str, kind: str):
     return blob
 
 
+def jax_ensemble_members(blob) -> int:
+    """K when the JAX VV checkpoint `blob` (`_read_jax`) holds a K-member
+    ensemble (`train/ensemble.EnsembleVVModel`: every leaf carries a
+    leading K axis, so conv1's kernel is (K, 3, 3, 1, filters)); 0 for one
+    net."""
+    p = blob["params"].get("params", blob["params"])
+    kernel = np.asarray(p["conv1"]["kernel"])
+    return int(kernel.shape[0]) if kernel.ndim == 5 else 0
+
+
 def _save_torch(path: str, blob: dict, verbose: bool):
     """torch.save of blob to path through a temporary file and a rename;
     refuses to overwrite a file that is not a checkpoint of the port."""
@@ -257,17 +268,21 @@ def _save_torch(path: str, blob: dict, verbose: bool):
 
 class TorchIndexSource:
     """Minibatch indices with replacement from a torch.Generator on
-    `device`, seeded at the start of every training session."""
+    `device`, seeded at the start of every training session: (batch,)
+    indices a step, or (*lead, batch) (the ensemble's (K, batch), a
+    minibatch a member)."""
 
-    def __init__(self, device):
+    def __init__(self, device, lead=()):
         self.gen = torch.Generator(device=device)
         self.device = device
+        self.lead = tuple(lead)
 
     def start(self, seed: int):
         self.gen.manual_seed(int(seed))
 
     def __call__(self, n: int, batch: int):
-        return torch.randint(0, n, (batch,), generator=self.gen, device=self.device)
+        return torch.randint(0, n, (*self.lead, batch), generator=self.gen,
+                             device=self.device)
 
 
 def _col(x, device):
@@ -295,7 +310,8 @@ def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_
     drawn with replacement by `model.index_source` (seeded from
     `model._rng`), `step(train, idx) -> (loss, per-sample losses, grad
     norm)` a minibatch, a validation loss every `iters_per_val` steps
-    (`model.eval_loss`), early stopping on it with the best params restored.
+    (`model.eval_loss`), early stopping on it with the best params restored
+    (`model._params_copy` / `model._set_params`).
 
     cols: equal-length device tensors, states first. With `grad_norm_warn`
     (the VV model's session) the grad norm is watched too: windows with a
@@ -303,7 +319,10 @@ def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_
     `dump_dir`, a window of exactly zero gradients ends the session, and the
     norm is logged and kept as the history's fifth column. Without it (the
     VP model's, as the reference's shared `_early_stop_fit`), the history
-    is (iteration, train loss, val loss, val std) a window.
+    is (iteration, train loss, val loss, val std) a window. A step of the
+    ensemble draws idx (K, batch) and returns K grad norms, one a member:
+    the worst (the first of the largest) is the step's, and the watchdog
+    dumps that member's minibatch.
 
     A step reads nothing back: a window keeps its losses, grad norms and
     minibatch indices on the device and reads them once, at its end."""
@@ -337,9 +356,14 @@ def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_
             gnorms.append(gnorm)
         vmean, vstd = model.eval_loss(val)
         # the window's one read from the device
-        host = torch.cat([torch.stack(losses), torch.stack(gnorms),
+        gn = torch.stack(gnorms)
+        host = torch.cat([torch.stack(losses), gn.reshape(-1),
                           torch.stack([vmean, vstd])]).cpu().numpy()
-        losses_h, gnorms_h = host[:k], host[k:2 * k]
+        losses_h, gnorms_h = host[:k], host[k:k + gn.numel()].reshape(gn.shape)
+        worst = None
+        if gnorms_h.ndim == 2:  # a norm a member: the worst member's counts
+            worst = gnorms_h.argmax(1)
+            gnorms_h = gnorms_h[np.arange(k), worst]
         it += k
         loss_avg = float(losses_h.mean())
         gnorm_avg = float(gnorms_h.mean())
@@ -347,10 +371,11 @@ def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_
         if watch:
             for j in np.nonzero(gnorms_h > grad_norm_warn)[0][:4]:
                 log(f"Large gradient ({float(gnorms_h[j])}) detected")
-                model._dump_grad_batch(tuple(d[idxs[j]] for d in train), dump_dir)
+                rows = idxs[j] if worst is None else idxs[j][worst[j]]
+                model._dump_grad_batch(tuple(d[rows] for d in train), dump_dir)
 
-        vmean = float(host[2 * k])
-        vstd = float(host[2 * k + 1]) / n_val**0.5
+        vmean = float(host[-2])
+        vstd = float(host[-1]) / n_val**0.5
         suffix = ""
         stop = False
         if early_stopping:
@@ -382,11 +407,23 @@ def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_
             break
 
     if early_stopping:
-        model.net.load_state_dict(best)
+        model._set_params(best)
     return history
 
 
-class VVModel:
+class _NetModel:
+    """What the session loop needs of a model that keeps its params in
+    `self.net`: a copy of them, and setting them back in place (the
+    optimizer holds the parameter tensors)."""
+
+    def _params_copy(self):
+        return {n: p.detach().clone() for n, p in self.net.named_parameters()}
+
+    def _set_params(self, params):
+        self.net.load_state_dict(params)
+
+
+class VVModel(_NetModel):
     """VV net + output bounds on `device`, with Yogi training.
 
     Options, as the reference's: `loss_type` (one of `models/losses.vv_loss`'s
@@ -419,9 +456,6 @@ class VVModel:
         self._rng = np.random.RandomState(seed + 1)
         self.index_source = index_source or TorchIndexSource(self.device)
 
-    def _params_copy(self):
-        return {n: p.detach().clone() for n, p in self.net.named_parameters()}
-
     def load_state(self, state_dict, ubound, lbound):
         """Set the net's params and the bounds; the params become the EWC
         anchor p0, as a fresh model's initial params are."""
@@ -453,6 +487,13 @@ class VVModel:
         (N, 1)) numpy arrays."""
         v, var = self.apply_fn()(_boards(boards, self.device))
         return v.cpu().numpy()[:, None], var.cpu().numpy()[:, None]
+
+    def inference_stochastic(self, boards):
+        """A Thompson-style draw: [normal(value, sqrt(variance)), variance]
+        of `inference`, the normal from the model's own
+        `np.random.RandomState(seed + 1)`, as the reference draws it."""
+        v, var = self.inference(boards)
+        return [self._rng.normal(v, np.sqrt(var)), var]
 
     # ----------------------------------------------------------- training
     def _weighted_loss(self, out, value, variance, weight):
@@ -541,11 +582,19 @@ class VVModel:
     def compute_fisher(self, data):
         """Empirical Fisher (the mean squared per-example gradient) of the
         per-sample loss at the current params; the params become p0."""
+        params = {n: p.detach() for n, p in self.net.named_parameters()}
+        self.fisher = self._fisher_at(params, data)
+        self.p0 = self._params_copy()
+
+    def _fisher_at(self, params, data):
+        """The empirical Fisher of the per-sample loss at `params` (a state
+        dict of the net's layout) over data (states, value, variance,
+        weight): the mean over the rows of each per-example gradient
+        squared."""
         from torch.func import functional_call, grad, vmap
 
         states = _boards(data[0], self.device)
         value, variance, weight = (_col(x, self.device) for x in data[1:4])
-        params = {n: p.detach() for n, p in self.net.named_parameters()}
 
         def one(p, s, v, var, w):
             out = functional_call(self.net, p, (s[None], self.ubound, self.lbound))
@@ -554,8 +603,7 @@ class VVModel:
         with tf32_off():
             grads = vmap(grad(one), in_dims=(None, 0, 0, 0, 0))(
                 params, states, value, variance, weight)
-        self.fisher = {n: (g**2).mean(0) for n, g in grads.items()}
-        self.p0 = self._params_copy()
+        return {n: (g**2).mean(0) for n, g in grads.items()}
 
     # --------------------------------------------------------- persistence
     def save(self, path: str | None = None, verbose: bool = False):
@@ -580,10 +628,18 @@ class VVModel:
             return False
         if not zipfile.is_zipfile(path):
             blob = _read_jax(path, "vv")
+            k = jax_ensemble_members(blob)
+            if k:
+                raise ValueError(f"{path} is a JAX checkpoint of a {k}-member ensemble, "
+                                 f"not of one VV net (load it with --ensemble {k})")
             self.load_state(*params_from_jax(blob["params"], blob["ubound"], blob["lbound"]))
             self.load_opt_state(*opt_state_from_jax(blob["opt_state"]))
         else:
             blob = torch.load(path, map_location=self.device, weights_only=True)
+            if "n_models" in blob:
+                raise ValueError(f"{path} is the port's checkpoint of a {blob['n_models']}-"
+                                 "member ensemble, not of one VV net (load it with "
+                                 f"--ensemble {blob['n_models']})")
             if "ubound" not in blob:
                 raise ValueError(f"{path} is a checkpoint of another of the port's nets, not "
                                  "of the VV net")
@@ -605,7 +661,7 @@ class VVModel:
                  pred_value=host(v), pred_variance=host(var))
 
 
-class VPModel:
+class VPModel(_NetModel):
     """VP net on `device`, with Adam-amsgrad training (the reference
     `VPModel`): the per-sample loss is weight * (smooth_l1(v, value) +
     kl_div_policy(logits, policy)); `weighted` sessions weight by the
@@ -621,9 +677,6 @@ class VPModel:
         self.opt = AdamAmsgrad(self.net.parameters(), lr=lr)
         self._rng = np.random.RandomState(seed + 1)
         self.index_source = index_source or TorchIndexSource(self.device)
-
-    def _params_copy(self):
-        return {n: p.detach().clone() for n, p in self.net.named_parameters()}
 
     def load_state(self, state_dict):
         self.net.load_state_dict(state_dict)
@@ -738,7 +791,7 @@ class VPModel:
         return True
 
 
-class DistModel:
+class DistModel(_NetModel):
     """The distributional net (`atoms` bins) on `device`, with Yogi training
     (the reference `DistModel`): the per-sample loss is weight *
     categorical_ce(net(states), target); `weighted` sessions weight by the
@@ -756,9 +809,6 @@ class DistModel:
         self.opt = Yogi(self.net.parameters(), lr=lr)
         self._rng = np.random.RandomState(seed + 1)
         self.index_source = index_source or TorchIndexSource(self.device)
-
-    def _params_copy(self):
-        return {n: p.detach().clone() for n, p in self.net.named_parameters()}
 
     def load_state(self, state_dict):
         self.net.load_state_dict(state_dict)
