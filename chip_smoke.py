@@ -137,7 +137,33 @@ of the JAX package. Phases, each printing its elapsed seconds:
    against its plain version under double probing on those trees' lanes
    (B = 1, 5, 64) and on the edge inputs at B = 1, 5, 64, 67 (torch.equal);
    the kernel's device time a launch under both modes (the `kernels` line's
-   insert row: `ms_linear_probe`, `ms_double_probe`).
+   insert row: `ms_linear_probe`, `ms_double_probe`);
+25. tools: `tools sanity` and `inference_speed` on the repo's trained VV
+   net, `replay --dump --model` and `--gif` on the cycle phase's rows,
+   `tools plot` on the online phase's metrics, and the dashboard on port 0
+   answering one `/data` request whose JSON parses;
+26. multi nccl1: `DistributedSelfPlay` at world size 1 over NCCL on cuda:0,
+   MULTI_MOVES lp moves at the CLI's width (store on, no session), every
+   tree array, env and ring bit-equal to `SelfPlayDriver`'s; one
+   `make_sharded_learner` step at batch 128 against `VVModel.train_step`
+   (rtol 1e-4 / atol 1e-6);
+27. multi gloo2: two spawned ranks on cuda:0 over gloo (NCCL refuses two
+   ranks on one card), 32 of the 64 lanes each, MULTI_MOVES lp moves against
+   one process on the concatenation of the ranks' games with the same
+   planes: bit-equal after every move, ring included, where that
+   process's net evaluates each rank's boards as their own batch; where it
+   evaluates all 448 at once, integers equal, values within rtol 1e-6 /
+   atol 1e-5, vars within rtol 1e-5 / atol 1e-5 (cuDNN / cuBLAS round a
+   board otherwise in another batch, tests/torch_ranks.NET_VAR_TOL); the
+   rings bit-equal across ranks; a data-parallel and
+   a tensor-parallel (model 2) learner step against `VVModel.train_step`
+   (bit-equal across ranks), MULTI_LEAF_MOVES leaf moves; the wall and
+   profiled device ms a move beside one process's, the ring gather's and
+   the gradient all-reduce's ms, the VV net on a rank's batch against one
+   process's; launches summed over the ranks;
+28. multi nccl2: the same over NCCL on cuda:0 and cuda:1 where the machine
+   has two cards, else a line saying it was not run and why;
+29. dryrun: `dryrun_multigpu(2)` on the card (gloo on one card).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the `kernels` line gives each kernel's launches summed over the
@@ -1181,12 +1207,14 @@ def main() -> int:
     say(f"phase kernels took {time.perf_counter() - t:.1f}s")
 
     # ---- 10. online: self-play with training at the CLI's width --------------
-    phase_online(torch, smi)
-
-    # ---- 11. the offline cycle through the CLI mains -------------------------
     import tempfile
 
-    saved_rows = tempfile.TemporaryDirectory()  # the cycle's saved rows, for 22-23
+    # the online phase's metrics and checkpoint and the cycle's saved rows,
+    # for 22, 23 and 25
+    saved_rows = tempfile.TemporaryDirectory()
+    phase_online(torch, smi, saved_rows.name)
+
+    # ---- 11. the offline cycle through the CLI mains -------------------------
     phase_cycle(torch, smi, saved_rows.name)
 
     # ---- 12-13. ApproxPolicyIter, frozen and online ---------------------------
@@ -1216,8 +1244,17 @@ def main() -> int:
     # ---- 22-24. the model variants and double-hash probing -----------------------
     phase_ensemble(torch, smi, saved_rows.name)
     phase_bayes(torch, smi, saved_rows.name)
+    # ---- 25. the tooling commands ------------------------------------------------
+    phase_tools(torch, smi, saved_rows.name)
     saved_rows.cleanup()
     ins_double_ms, ins_linear_ms = phase_probe_double(torch, smi, trees)
+
+    # ---- 26-29. several ranks: NCCL at world size 1, two gloo ranks on one
+    # card, NCCL over two cards where there are two, the dry run ------------------
+    phase_multi_nccl1(torch, smi)
+    phase_multi_gloo2(torch, smi)
+    phase_multi_nccl2(torch, smi, count)
+    phase_dryrun(torch, smi, count)
 
     def by_path(name):
         return {p: c[name] for p, c in PATH_LAUNCHES.items() if c.get(name)}
@@ -1243,10 +1280,11 @@ def main() -> int:
     return 0
 
 
-def phase_online(torch, smi):
+def phase_online(torch, smi, keep_dir):
     """ValueSimLP self-play with training at the CLI's width, through
     `SelfPlayDriver` in online mode; then the train step and the store
-    measured and checked on their own."""
+    measured and checked on their own. Its metrics file and checkpoint are
+    copied into `keep_dir` for the tools phase."""
     import tempfile
     from pathlib import Path
 
@@ -1455,6 +1493,10 @@ def phase_online(torch, smi):
             close("checkpoint outputs", a, b, True)
         say(f"  checkpoint round trip: params, Yogi state ({back.opt.count} steps), bounds and "
             f"outputs equal ({os.path.getsize(path)} bytes)")
+        import shutil
+
+        shutil.copy(mpath, keep_dir)
+        shutil.copy(path, keep_dir)
     say(f"phase online took {time.perf_counter() - t:.1f}s")
 
 
@@ -2660,6 +2702,274 @@ def packed_imgs(packed7):
 
     B = packed7.shape[0]
     return unpack_obs(packed7).reshape(B * 7, 1, 20, 10).float()
+
+
+# ---------------------------------------------------------------------------
+# 25: the tooling commands; 26-29: several ranks
+# ---------------------------------------------------------------------------
+
+MULTI_MOVES = 5        # the multi phases' lp moves at the CLI width
+MULTI_LEAF_MOVES = 2   # ... and leaf moves under two gloo ranks
+MULTI_TRAIN_BATCH = 128
+
+
+def _multi_cfg():
+    """The CLI's width (B=64, 100 sims, pools 4096/4096, table 8192, depth
+    96) with the store on and no session (the trigger out of reach: the
+    learner steps are checked on their own)."""
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig
+
+    return SelfPlayConfig(train_rows_trigger=10**9)
+
+
+def phase_tools(torch, smi, rows_dir):
+    """`tools sanity` and `inference_speed` on the repo's trained VV net,
+    `replay --dump --model` and `--gif` on the cycle phase's rows, `tools
+    plot` on the online phase's metrics, and the dashboard on port 0
+    answering one `/data` request whose JSON parses."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from tetris_mcts_tpu_torch.cli import replay, tools
+    from tetris_mcts_tpu_torch.obs import dashboard
+
+    t = time.perf_counter()
+    rec = os.path.join(rows_dir, "data0.rec")
+    out = {}
+    for name, fn, argv in (
+            ("sanity", tools.main, ["sanity", "--checkpoint", TRAINED_CKPT]),
+            ("speed", tools.main, ["inference_speed", "--iters", "2000", "--batch", "5"]),
+            ("replay", replay.main, [rec, "--dump", "--episode", "0", "--model", TRAINED_CKPT]),
+            ("gif", replay.main, [rec, "--episode", "0", "--gif",
+                                  os.path.join(rows_dir, "e.gif"), "--gif_scale", "4"]),
+            ("plot", tools.main, ["plot", "--metrics", os.path.join(rows_dir, "metrics.jsonl"),
+                                  "--what", "loss", "--out", os.path.join(rows_dir, "l.svg")])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        if rc not in (0, None):
+            raise AssertionError(f"tools phase: {name} exited {rc}")
+        out[name] = buf.getvalue()
+    params = int(out["sanity"].split("Parameters: ")[1].split()[0])
+    speed = json.loads(out["speed"].strip().splitlines()[-1])
+    frames = out["replay"].count("model value")
+    with open(os.path.join(rows_dir, "e.gif"), "rb") as f:
+        gif = f.read()
+    if params != 478338 or frames < 1 or not gif.startswith(b"GIF89a") or             "polyline" not in open(os.path.join(rows_dir, "l.svg")).read():
+        raise AssertionError(f"tools phase: params {params}, {frames} replayed frames, "
+                             f"gif {gif[:6]!r}")
+    httpd = dashboard.serve(os.path.join(rows_dir, "metrics.jsonl"), port=0, blocking=False,
+                            host="127.0.0.1", checkpoint=os.path.join(rows_dir, "model.pt"))
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/data"
+        data = json.loads(urllib.request.urlopen(url, timeout=60).read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if not data["trains"] or len(data["weights"]) != 5:
+        raise AssertionError(f"dashboard /data: {len(data['trains'])} sessions, "
+                             f"{len(data['weights'])} weight panels")
+    say(f"phase tools: sanity ({params} params, {out['sanity'].count('board ')} boards, "
+        f"{out['sanity'].strip().splitlines()[-1]}); inference_speed {speed} ({smi}); replay "
+        f"--dump --model: {frames} frames; --gif {len(gif)} bytes; plot loss "
+        f"({len(data['trains'])} sessions); dashboard /data: {len(data['episodes'])} "
+        f"episodes, {len(data['weights'])} weight panels; in {time.perf_counter() - t:.1f}s")
+
+
+def phase_multi_nccl1(torch, smi):
+    """`DistributedSelfPlay` at world size 1 over NCCL on cuda:0: MULTI_MOVES
+    lp moves at the CLI width, every tree array, env and ring bit-equal to
+    `SelfPlayDriver`'s on the same seed; then one `make_sharded_learner`
+    step at batch MULTI_TRAIN_BATCH against `VVModel.train_step` (rtol 1e-4
+    / atol 1e-6, the online phase's step bound)."""
+    import tempfile
+    from dataclasses import fields
+
+    import torch.distributed as dist
+
+    from tetris_mcts_tpu_torch.parallel import mesh as M
+    from tetris_mcts_tpu_torch.runtime import distributed as D
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
+    from tetris_mcts_tpu_torch.train.trainer import VVModel
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_train_cases import train_columns
+
+    t = time.perf_counter()
+    cfg = _multi_cfg()
+    with tempfile.TemporaryDirectory() as tmp:
+        D.init_distributed("file://" + os.path.join(tmp, "group"), 1, 0, device="cuda:0")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"multi nccl1: backend {dist.get_backend()}, want nccl")
+            sp = D.DistributedSelfPlay(cfg, device="cuda:0", log=lambda s: None)
+            reset_launches()
+            t_run = time.perf_counter()
+            sp.run(MULTI_MOVES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            launches = record("multi nccl1", read_launches())
+            one = SelfPlayDriver(cfg, device="cuda:0", log=lambda s: None)
+            one.run(MULTI_MOVES)
+            a, b = sp.driver, one
+            for f in fields(a.trees):
+                close(f"multi nccl1 {f.name}", getattr(a.trees, f.name),
+                      getattr(b.trees, f.name), True)
+            close("multi nccl1 envs", a.envs, b.envs, True)
+            for x, y in zip(a.replay.rows() + (a.replay.idx, a.replay.total),
+                            b.replay.rows() + (b.replay.idx, b.replay.total)):
+                close("multi nccl1 ring", x, y, True)  # the rows, not the sink
+            sp.close()
+            want = MULTI_MOVES * cfg.sims
+            check_launches("multi nccl1", launches,
+                           {"select_walk": want, "insert7_walk": want, "lp_backup_walk": want})
+            cols = train_columns(device="cuda:0")
+            idx = torch.randint(0, cols[0].shape[0], (MULTI_TRAIN_BATCH,),
+                                generator=torch.Generator().manual_seed(3)).cuda()
+            m, ref = VVModel(seed=5, device="cuda:0"), VVModel(seed=5, device="cuda:0")
+            mesh = M.make_mesh()
+            state, step = M.make_sharded_learner(m, mesh)
+            state, met, _ = step(state, m.ubound, cols, idx)
+            loss, _, _ = ref.train_step(cols, idx)
+            got = M.gather_params(mesh, state)
+            err = 0.0
+            for k, v in ref.net.state_dict().items():
+                torch.testing.assert_close(got[k], v, rtol=1e-4, atol=1e-6, msg=k)
+                err = max(err, float((got[k] - v).abs().max()))
+            mesh.close()
+        finally:
+            dist.destroy_process_group()
+    say(f"phase multi nccl1: DistributedSelfPlay at world size 1 over NCCL, {MULTI_MOVES} lp "
+        f"moves x {cfg.sims} sims at B={cfg.batch} in {wall:.2f}s ({smi}); trees, envs and "
+        f"ring ({int(a.replay.total)} rows) bit-equal to SelfPlayDriver; launches {launches}; "
+        f"learner step at batch {MULTI_TRAIN_BATCH}: loss {float(met['loss']):.5f} "
+        f"(VVModel {float(loss):.5f}), params max abs err {err:.3e}; in "
+        f"{time.perf_counter() - t:.1f}s")
+
+
+def _rank_summary(outs, key="launches"):
+    total = {}
+    for o in outs:
+        for k, v in o[key].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_multi_gloo2(torch, smi):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card),
+    `DistributedSelfPlay` at the CLI width with 32 of the 64 lanes each:
+    MULTI_MOVES lp moves against one process on the concatenation of the
+    ranks' games with the same planes (tests/torch_ranks.check_card_selfplay:
+    bit-equal after every move where that process's net takes each rank's
+    boards as a batch; with its net on all the boards at once, every
+    integer equal, values within rtol 1e-6 / atol 1e-5, vars within rtol
+    1e-5 / atol 1e-5; the rings bit-equal across ranks),
+    then a data-parallel and a tensor-parallel learner step against
+    `VVModel.train_step` (bit-equal across ranks), then MULTI_LEAF_MOVES leaf
+    moves (the backup walk under two ranks). The launches are summed over
+    the ranks (tests/torch_ranks.py)."""
+    from tetris_mcts_tpu_torch.runtime import distributed as D
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_ranks import card_selfplay, check_card_selfplay
+
+    t = time.perf_counter()
+    cfg = _multi_cfg()
+    idx = torch.randint(0, 512, (MULTI_TRAIN_BATCH,), generator=torch.Generator().manual_seed(4))
+    outs = D.spawn(card_selfplay, 2, (cfg, MULTI_MOVES, MULTI_LEAF_MOVES, "cuda:0", (5, idx)),
+                   device="cuda:0", backend="gloo", threads=0, timeout=600)
+    t_spawn = time.perf_counter() - t
+    one, walls, one_ms, errs = check_card_selfplay(outs, cfg, MULTI_MOVES, "cuda:0", (5, idx))
+    part, whole = cfg.batch // 2 * 7, cfg.batch * 7  # a rank's children a simulation, one's
+    net_err = net_batch_err(torch, one.model, whole, part)
+    lp, leaf = _rank_summary(outs), _rank_summary(outs, "leaf_launches")
+    want, lwant = MULTI_MOVES * cfg.sims, MULTI_LEAF_MOVES * cfg.sims
+    for r, o in enumerate(outs):
+        check_launches(f"multi gloo2 rank {r}", o["launches"],
+                       {"select_walk": want, "insert7_walk": want, "lp_backup_walk": want})
+        check_launches(f"multi gloo2 rank {r} leaf", o["leaf_launches"],
+                       {"select_walk": lwant, "insert7_walk": lwant, "backup_walk": lwant})
+    record("multi gloo2", {k: lp.get(k, 0) + leaf.get(k, 0) for k in set(lp) | set(leaf)})
+    ms = lambda w: sum(w[1:]) / len(w[1:]) * 1e3  # the first move warms cuDNN up
+    say(f"phase multi gloo2: 2 ranks x {cfg.batch // 2} lanes on cuda:0 over gloo, "
+        f"{MULTI_MOVES} lp moves: after every move bit-equal to one process at B={cfg.batch} "
+        f"whose net takes each rank's {part} boards as a batch; against one process's net on "
+        f"all {whole} at once integers equal, {float_errs(errs)}; rings bit-equal across ranks "
+        f"({outs[0]['ring_counts'][2]} rows); the VV net on {part} boards alone against "
+        f"them in a batch of {whole}: max abs err {net_err:.3e}; wall a "
+        f"move (moves 2-{MULTI_MOVES}) rank 0 {ms(outs[0]['walls']):.1f} ms, rank 1 "
+        f"{ms(outs[1]['walls']):.1f} ms, one process {ms(walls):.1f} ms; profiled device ms a "
+        f"move rank 0 {outs[0]['device_ms']:.1f}, rank 1 {outs[1]['device_ms']:.1f}, one process "
+        f"{one_ms:.1f}; the ring's gather ({outs[0]['ring_gather_bytes']} bytes over gloo, "
+        f"Mesh.gather_rows) rank 0 {outs[0]['ring_gather_ms']:.2f} ms, rank 1 "
+        f"{outs[1]['ring_gather_ms']:.2f} ms a move, median of 10 ({smi})")
+    say(f"  learner at batch {MULTI_TRAIN_BATCH}: data 2 step {outs[0]['learner'][1]['ms']:.1f} "
+        f"ms, model 2 step {outs[0]['learner'][2]['ms']:.1f} ms (first calls), params within "
+        f"rtol 1e-4 / atol 1e-6 of VVModel.train_step and bit-equal across ranks; gradient "
+        f"all-reduce ({outs[0]['allreduce_floats']} float32 over gloo) "
+        f"{outs[0]['allreduce_ms']:.2f} ms median of 10; leaf: {MULTI_LEAF_MOVES} moves, "
+        f"launches summed {leaf}; lp launches summed {lp}; spawn and ranks {t_spawn:.1f}s; "
+        f"in {time.perf_counter() - t:.1f}s")
+
+
+def float_errs(errs):
+    """check_card_selfplay's float errors as a line: each field's max abs
+    err by move, and the largest share of STAT_TOL's bound (rtol 1e-6 /
+    atol 1e-5) over the moves; the ring's after the last move."""
+    names = list(errs[-1])
+    return "; ".join(
+        f"{n} max abs err by move {['%.3e' % e[n][0] for e in errs if n in e]}, at most "
+        f"{max(e[n][1] for e in errs if n in e):.3f} of STAT_TOL's bound" for n in names)
+
+
+def net_batch_err(torch, model, n, k):
+    """Max abs err of `model`'s VV outputs on k seeded boards alone against
+    the same boards as the first k of a batch of n (cuDNN and cuBLAS may
+    pick another algorithm for another batch)."""
+    g = torch.Generator().manual_seed(6)
+    x = (torch.rand((n, 1, 20, 10), generator=g) < 0.4).float().to(model.device)
+    f = model.apply_fn()
+    whole, part = torch.stack(f(x), 1)[:k], torch.stack(f(x[:k]), 1)
+    return float((whole - part).abs().max())
+
+
+def phase_multi_nccl2(torch, smi, count):
+    """With two cards: the gloo2 phase's checks over NCCL, rank r on cuda:r
+    (its kernels launch on cuda:1 for rank 1). With one card: a line saying
+    so."""
+    if count < 2:
+        say(f"phase multi nccl2: not run: {count} CUDA device on this machine; NCCL over two "
+            "ranks needs two cards (NCCL refuses two ranks on one GPU)")
+        return
+    from tetris_mcts_tpu_torch.runtime import distributed as D
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_ranks import card_selfplay, check_card_selfplay
+
+    t = time.perf_counter()
+    cfg = _multi_cfg()
+    idx = torch.randint(0, 512, (MULTI_TRAIN_BATCH,), generator=torch.Generator().manual_seed(4))
+    outs = D.spawn(card_selfplay, 2, (cfg, MULTI_MOVES, MULTI_LEAF_MOVES, "cuda", (5, idx)),
+                   device="cuda", backend="nccl", threads=0, timeout=600)
+    _, walls, _, errs = check_card_selfplay(outs, cfg, MULTI_MOVES, "cuda:0", (5, idx))
+    record("multi nccl2", _rank_summary(outs))
+    say(f"phase multi nccl2: 2 ranks on cuda:0 and cuda:1 over NCCL, {MULTI_MOVES} lp moves "
+        f"equal to one process ({float_errs(errs)}); "
+        f"ring gather {outs[0]['ring_gather_ms']:.2f} ms; gradient all-reduce "
+        f"{outs[0]['allreduce_ms']:.2f} ms ({smi}); in {time.perf_counter() - t:.1f}s")
+
+
+def phase_dryrun(torch, smi, count):
+    """`dryrun_multigpu(2)` on the card (gloo on one card, NCCL on two)."""
+    from tetris_mcts_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    t = time.perf_counter()
+    outs = dryrun_multigpu(2, "cuda", backend=None if count >= 2 else "gloo", timeout=600)
+    say(f"phase dryrun: dryrun_multigpu(2) on {'two cards, NCCL' if count >= 2 else 'one card, gloo'}: "
+        f"{outs[0]['moves']} moves, ring {outs[0]['ring_total']} rows, learner (model "
+        f"{outs[0]['model_parallel']}) losses {[round(x, 4) for x in outs[0]['losses']]}, params "
+        f"equal on both ranks; in {time.perf_counter() - t:.1f}s")
 
 
 if __name__ == "__main__":

@@ -337,14 +337,47 @@ def test_train_refuses_unported_models(flag, tmp_path, monkeypatch, capsys):
     assert "--ensemble applies to the vv model only; ignored" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("cmd", ["play", "train", "cycle"])
+CARD_ARGS = {"play": [], "train": [], "cycle": [], "replay": ["rows.rec", "--dump"],
+             "tools sanity": ["sanity"], "tools inference_speed": ["inference_speed"],
+             "tools train_dump": ["train_dump", "dump.npz"],
+             "tools plot response": ["plot", "--what", "response"]}
+
+
+@pytest.mark.parametrize("cmd", list(CARD_ARGS))
 def test_cuda_default_refused_without_a_card(cmd, monkeypatch, capsys):
-    from tetris_mcts_tpu_torch.cli import cycle, train
+    from tetris_mcts_tpu_torch.cli import cycle, replay, tools, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = {"play": play.main, "train": train.main, "cycle": cycle.main,
+            "replay": replay.main}.get(cmd, tools.main)
     with pytest.raises(SystemExit) as exc:
-        {"play": play.main, "train": train.main, "cycle": cycle.main}[cmd]([])
+        main(CARD_ARGS[cmd])
     assert exc.value.code == 2 and "no CUDA device" in capsys.readouterr().err
+
+
+def test_tooling_commands_run_through_the_dispatcher_on_cpu(tmp_path):
+    """`replay`, `tools` and `dashboard` through `python -m
+    tetris_mcts_tpu_torch` at a tiny CPU size: a saved game replayed, a
+    VV net checked, a metrics file plotted, the dashboard's usage."""
+    from tetris_mcts_tpu_torch.obs.metrics import MetricsWriter
+
+    run = lambda *a: subprocess.run([sys.executable, "-m", "tetris_mcts_tpu_torch", *a],
+                                    capture_output=True, text=True, cwd=ROOT, timeout=300)
+    res = run("play", *TINY, "--benchmark", "--max_moves", "4", "--save",
+              "--save_dir", str(tmp_path / "rows"))
+    assert res.returncode == 0, res.stderr
+    res = run("replay", str(tmp_path / "rows" / "data0.rec"), "--dump", "--device", "cpu")
+    assert res.returncode == 0 and res.stdout.count("frame ") == 4, res.stderr
+    res = run("tools", "sanity", "--device", "cpu", "--checkpoint", str(tmp_path / "none.pt"))
+    assert res.returncode == 0 and "\nParameters: 478338\n" in res.stdout, res.stderr
+    m = MetricsWriter(str(tmp_path / "m.jsonl"))
+    m.write("episode", n=1, lines=3, score=40)
+    m.close()
+    res = run("tools", "plot", "--metrics", str(tmp_path / "m.jsonl"), "--out",
+              str(tmp_path / "l.svg"))
+    assert res.returncode == 0 and (tmp_path / "l.svg").read_text().startswith("<svg"), res.stderr
+    res = run("dashboard", "--help")
+    assert res.returncode == 0 and "--metrics" in res.stdout
 
 
 def normalised_plan(text):

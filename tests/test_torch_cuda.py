@@ -50,6 +50,9 @@ draw's net agrees on, the update fed the card's gradients rtol 1e-6 / atol
 sigma ~0.01, so the devices' expf, an ulp apart, part rho by ~1e-6
 relative, 1.35e-6 seen). Double-hash probing adds the insert kernel against its plain
 version at B = 1, 5, 64 and 67 on the grown trees and on the edge inputs.
+Multi-rank adds two: two gloo ranks on one card (4 lp moves, a data- and a
+tensor-parallel learner step, 2 leaf moves) against one process, and, on a
+machine with two cards, select, insert and the LP backup on cuda:1.
 """
 
 import numpy as np
@@ -666,3 +669,58 @@ def test_bbb_step_on_card_matches_cpu_in_parts(card, method):
     rtol = 1e-6 if method == "adam" else 1e-5
     for a, b in zip(*out["params"]):
         torch.testing.assert_close(a.cpu(), b, rtol=rtol, atol=1e-7)
+
+
+def test_two_rank_gloo_moves_and_learner_on_card_match_one_process(card, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card), each
+    `DistributedSelfPlay` with 4 of 8 lanes for 4 lp moves, then a
+    data-parallel and a tensor-parallel learner step, then 2 leaf moves:
+    after every move the trees equal one process's on the concatenation of
+    the ranks' games in every integer, values within rtol 1e-6 / atol 1e-5
+    and vars within rtol 1e-5 / atol 1e-5 (torch_ranks.NET_VAR_TOL); the
+    rings bit-equal across ranks and within those bounds of one process's;
+    the learner's params within the card
+    step's bound (rtol 1e-4 / atol 1e-6) of `VVModel.train_step`, bit-equal
+    across ranks (tests/torch_ranks.check_card_selfplay)."""
+    from tetris_mcts_tpu_torch.runtime import distributed as D
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig
+    from torch_ranks import card_selfplay, check_card_selfplay
+
+    cfg = SelfPlayConfig(batch=8, sims=6, max_nodes=128, max_obs=128, table_size=256,
+                         max_depth=24, min_visits_store=1, memory_size=512,
+                         train_rows_trigger=10**9, seed=4)
+    idx = torch.randint(0, 512, (128,), generator=torch.Generator().manual_seed(2))
+    outs = D.spawn(card_selfplay, 2, (cfg, 4, 2, "cuda:0", (5, idx)), device="cuda:0",
+                   backend="gloo", threads=0, timeout=600, workdir=str(tmp_path))
+    check_card_selfplay(outs, cfg, 4, "cuda:0", (5, idx))
+    for o in outs:
+        assert o["launches"]["select_walk"] == o["launches"]["lp_backup_walk"] == 4 * cfg.sims
+        assert o["leaf_launches"]["backup_walk"] == 2 * cfg.sims
+    assert outs[0]["ring_counts"][2] > 0
+
+
+@pytest.mark.parametrize("n", [5, 67])
+def test_kernels_on_the_second_card_match_plain(grown, n):
+    """With two cards: select, insert and the LP backup with every tensor on
+    cuda:1 (the launch runs on its tensors' device) against the plain
+    versions there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one CUDA device: the second card's checks need two")
+    dev = torch.device("cuda", 1)
+    trees = T.Tree(**{f: getattr(lanes(grown, n), f).to(dev)
+                      for f in grown.__dataclass_fields__})
+    gum, rnd = M.TorchPlanes(3, dev)(n, CFG.max_depth)
+    out_k = W.select_walk(trees, gum, rnd, CFG)
+    for g, w in zip(out_k, W.select_walk_plain(trees, gum, rnd, CFG)):
+        assert g.device == dev and torch.equal(g, w)
+    traces, lengths, leafs, _, packed7, _, end7 = out_k
+    ok = torch.arange(n, device=dev) % 3 != 0
+    tk, tp = trees.clone(), trees.clone()
+    assert torch.equal(W.insert_obs7(tk, packed7, end7 != 0, ok, CFG),
+                       T.insert_obs7_batched(tp, packed7, end7 != 0, ok, CFG))
+    v = torch.linspace(1.0, 7.0, n * 7, device=dev).reshape(n, 7)
+    var = torch.full((n, 7), 3.0, device=dev)
+    W.lp_backup(tk, traces, lengths, v, var, ok, CFG)
+    W.lp_backup_plain(tp, traces, lengths, v, var, ok, CFG)
+    assert torch.equal(tk.visits, tp.visits)
+    torch.testing.assert_close(tk.values, tp.values, rtol=1e-6, atol=1e-5)

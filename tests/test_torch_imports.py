@@ -1,5 +1,5 @@
-"""The port imports neither JAX nor the JAX package, nor h5py (the card's
-machine has none): its modules and chip_smoke.py are checked by their
+"""The port imports neither JAX nor the JAX package, nor h5py or PIL (the
+card's machine has neither): its modules and chip_smoke.py are checked by their
 import statements, and the package is imported in a fresh interpreter
 where `jax`, flax, msgpack, the JAX package and `h5py` cannot be imported;
 there the JAX package's checkpoint is read and loaded too."""
@@ -12,7 +12,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "h5py", "triton",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "h5py", "PIL", "triton",
              "tetris_mcts_tpu")
 SOURCES = sorted((ROOT / "tetris_mcts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -37,8 +37,9 @@ def test_kernel_modules_are_checked():
     them (the VP, distributional and stochastic searches' too), the DQN
     agent, the training, replay and metrics modules of
     online self-play (the ensemble and the Bayesian net too), the offline
-    cycle's savers, watchdog and commands, and the JAX checkpoint reader
-    are among the sources checked above."""
+    cycle's savers, watchdog and commands, the JAX checkpoint reader, the
+    multi-rank mesh, runtime and dry run, and the tooling commands are
+    among the sources checked above."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("ops/build.py", "ops/tree_walk.py", "ops/vv_forward.py", "ops/bench_walk.py",
                 "search/mcts.py", "search/tree.py", "runtime/selfplay.py", "cli/play.py",
@@ -46,14 +47,16 @@ def test_kernel_modules_are_checked():
                 "obs/metrics.py", "utils/data.py", "runtime/watchdog.py", "cli/train.py",
                 "cli/cycle.py", "cli/replay.py", "cli/__init__.py", "search/vp.py",
                 "search/distributional.py", "train/flax_msgpack.py", "search/stochastic.py",
-                "runtime/dqn.py", "train/ensemble.py", "train/bayesian.py"):
+                "runtime/dqn.py", "train/ensemble.py", "train/bayesian.py",
+                "parallel/mesh.py", "parallel/dryrun.py", "runtime/distributed.py",
+                "cli/tools.py", "cli/dashboard.py", "obs/dashboard.py"):
         assert f"tetris_mcts_tpu_torch/{mod}" in names, mod
 
 
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'h5py', 'tetris_mcts_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'h5py', 'PIL', 'tetris_mcts_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import pkgutil, importlib, tetris_mcts_tpu_torch as p\n"
         "for mod in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -72,7 +75,7 @@ def test_jax_checkpoint_reads_with_flax_and_msgpack_blocked():
     imported."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'h5py', 'tetris_mcts_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'h5py', 'PIL', 'tetris_mcts_tpu'):\n"
         "    sys.modules[m] = None\n"
         "from tetris_mcts_tpu_torch.train import flax_msgpack\n"
         "from tetris_mcts_tpu_torch.train.trainer import VVModel\n"

@@ -1,8 +1,8 @@
-"""`python -m tetris_mcts_tpu_torch {play,train,cycle} [args...]`."""
+"""`python -m tetris_mcts_tpu_torch {play,train,cycle,dashboard,replay,tools} [args...]`."""
 
 import sys
 
-COMMANDS = ("play", "train", "cycle")
+COMMANDS = ("play", "train", "cycle", "dashboard", "replay", "tools")
 
 
 def main():
@@ -14,13 +14,10 @@ def main():
         print(f"unknown command {cmd!r} (the port has: {', '.join(COMMANDS)})",
               file=sys.stderr)
         return 2
-    if cmd == "play":
-        from tetris_mcts_tpu_torch.cli.play import main as run
-    elif cmd == "train":
-        from tetris_mcts_tpu_torch.cli.train import main as run
-    else:
-        from tetris_mcts_tpu_torch.cli.cycle import main as run
-    rc = run(argv)  # cycle returns its exit code; play and train return objects
+    import importlib
+
+    run = importlib.import_module(f"tetris_mcts_tpu_torch.cli.{cmd}").main
+    rc = run(argv)  # cycle, replay and tools return exit codes; play and train objects
     return rc if isinstance(rc, int) else 0
 
 

@@ -88,13 +88,18 @@ class _ConvFC(nn.Module):
                 _lecun_normal_(m.weight, fan_in, gen)
                 m.bias.zero_()
 
-    def logits(self, x, compute_dtype=None):
+    def logits(self, x, compute_dtype=None, head=None):
+        """The head's outputs; `head`, when given, takes the flattened conv
+        features in place of fc1 and fc_out (the model-parallel learner's
+        split pair, `parallel/mesh.py`)."""
         dt = compute_dtype or torch.float32
         x = x.to(dt)
         with tf32_off():
             for conv in (self.conv1, self.conv2, self.conv3):
                 x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt)))
         x = x.flatten(1)  # (c, y, x) order
+        if head is not None:
+            return head(x)
         x = F.relu(F.linear(x, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
         return F.linear(x.float(), self.fc_out.weight, self.fc_out.bias)
 
@@ -103,8 +108,8 @@ class VVNet(_ConvFC):
     def __init__(self, filters: int = 32, n_fc: int = 256, seed: int = 0):
         super().__init__(2, filters, n_fc, seed)
 
-    def forward(self, x, ubound, lbound, compute_dtype=None):
-        return torch.sigmoid(self.logits(x, compute_dtype)) * ubound + lbound
+    def forward(self, x, ubound, lbound, compute_dtype=None, head=None):
+        return torch.sigmoid(self.logits(x, compute_dtype, head)) * ubound + lbound
 
 
 class DistNet(_ConvFC):

@@ -50,6 +50,12 @@ one host read. `save_nodes` dumps every tree's searched observations.
 A stall watchdog installed process-wide (`runtime/watchdog.install`) is
 beaten on every move and every log line, and given a grace window at the
 start of a training session and before the benchmark twin's first move.
+
+Several ranks (`runtime/distributed.DistributedSelfPlay` sets `mesh`): each
+rank steps its own lanes; the move's per-lane columns are gathered over
+the data axis on the device before the one host read, so every rank keeps
+the same bookkeeping of every game, and a session ends with every rank's
+model set to rank 0's (`parallel/mesh.replicate_model`).
 """
 
 from __future__ import annotations
@@ -176,6 +182,9 @@ class _OnlineDriverBase:
         self.metrics = metrics
         self.saver = saver
         self.status = status
+        # a multi-rank run's mesh (`runtime/distributed.DistributedSelfPlay`):
+        # the per-lane reads gather every rank's games, sessions end replicated
+        self.mesh = None
         # per-lane episode ids of the saver's rows; a finished lane takes
         # the next id
         self._ep_id = np.arange(cfg.batch, dtype=np.int64)
@@ -255,15 +264,16 @@ class _OnlineDriverBase:
         if self._watchdog is not None:
             self._watchdog.beat()
         self.last_stats = stats
-        B = stats.done.shape[0]
         rep = self.replay
-        parts = [torch.cat([
-            torch.stack([stats.done.to(torch.int64), stats.score.to(torch.int64),
-                         stats.lines.to(torch.int64)]).reshape(-1),
-            torch.stack([rep.total, rep.cand]).to(torch.int64)])]
+        lanes = torch.stack([stats.done.to(torch.int64), stats.score.to(torch.int64),
+                             stats.lines.to(torch.int64)], 1)
         publish = self.saver is not None or self.status is not None
-        if publish:
-            parts += self._publish_columns(stats, envs_prev)
+        extra = self._publish_columns(stats, envs_prev) if publish else []
+        if self.mesh is not None:  # every rank's games, in lane order
+            lanes = self.mesh.gather_lanes(lanes)
+        B = lanes.shape[0]
+        parts = [torch.cat([lanes.T.reshape(-1),
+                            torch.stack([rep.total, rep.cand]).to(torch.int64)])] + extra
         fetched = _host_read(parts)
         host = fetched[0]
         done, score, lines = host[:B] != 0, host[B:2 * B], host[2 * B:3 * B]
@@ -416,6 +426,10 @@ class _OnlineDriverBase:
         hist = self.model.train_data(
             data, batch_size=cfg.train_batch, iters_per_val=cfg.train_iters_per_val,
             max_iters=cfg.train_max_iters, shuffle=True, log=self.log)
+        if self.mesh is not None:
+            from tetris_mcts_tpu_torch.parallel.mesh import replicate_model
+
+            replicate_model(self.mesh, self.model)
         seconds = time.time() - t0
         self.train_history.append(hist)
         self.log(f"Training session {self.n_trains} done in {seconds:.1f}s")
@@ -637,11 +651,12 @@ class SelfPlayDriver(_OnlineDriverBase):
 
     def __init__(self, cfg: SelfPlayConfig, model: VVModel | VPModel | None = None,
                  device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
-                 metrics=None, saver=None, status=None):
+                 metrics=None, saver=None, status=None, planes=None):
         """`saver`: a `utils.data.DataSaver` (per-move rows); `status`: an
         `obs.metrics.StatusPublisher` (live-state memmaps). The policy
         playouts (hybrid, finite, full) run on a `VPModel`, the other
-        evaluators on a `VVModel`."""
+        evaluators on a `VVModel`. `planes` replaces the randomness source
+        (a multi-rank run's `parallel/mesh.ShardedPlanes`)."""
         self._init_bookkeeping(cfg, log, metrics, saver, status, device)
         playout = cfg.evaluator in mcts.POLICY_PLAYOUTS
         if model is None:
@@ -649,7 +664,7 @@ class SelfPlayDriver(_OnlineDriverBase):
         self.model = model
         self.search_cfg = search_config(cfg)
         mcts.log_plain_walks(self.log, self.search_cfg.tree)
-        self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        self.planes = planes or mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
         if cfg.evaluator == "lp":
             evaluator = mcts.nn_child_evaluator(apply_fn)
@@ -704,12 +719,12 @@ class VPSelfPlayDriver(_OnlineDriverBase):
 
     def __init__(self, cfg: SelfPlayConfig, model: VPModel | None = None,
                  device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
-                 metrics=None, saver=None, status=None):
+                 metrics=None, saver=None, status=None, planes=None):
         self._init_bookkeeping(cfg, log, metrics, saver, status, device)
         self.model = model if model is not None else VPModel(cfg.seed, self.device)
         self.search_cfg = search_config(cfg, "vp")
         mcts.log_plain_walks(self.log, self.search_cfg.tree, ("insert",))
-        self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        self.planes = planes or mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         self._move = VP.make_vp_move_fn(
             self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None), self.search_cfg,
             self.planes, min_visits_store=cfg.min_visits_store, store=not cfg.benchmark)
@@ -756,13 +771,13 @@ class DistSelfPlayDriver(_OnlineDriverBase):
 
     def __init__(self, cfg: SelfPlayConfig, model: DistModel | None = None,
                  device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
-                 metrics=None, saver=None, status=None):
+                 metrics=None, saver=None, status=None, planes=None):
         self._init_bookkeeping(cfg, log, metrics, saver, status, device)
         self.model = model if model is not None else DistModel(seed=cfg.seed, device=self.device)
         self.dcfg = DD.DistConfig(atoms=self.model.atoms, low=cfg.low)
         self.search_cfg = search_config(cfg, "dist")
         mcts.log_plain_walks(self.log, self.search_cfg.tree, ("insert",))
-        self.planes = mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
+        self.planes = planes or mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         self._move = DD.make_dist_move_fn(
             self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None), self.search_cfg,
             self.dcfg, self.planes, min_visits_store=cfg.min_visits_store,

@@ -476,7 +476,12 @@ def append_rows(rep, cols, mask, cand=None):
     """Append the rows of `cols` (one tensor a ring array, rows first)
     where mask (n,) at the ring's head, in place. When one call holds more
     than `capacity` rows only the newest `capacity` are kept. `cand` (n,)
-    bool, when given, is counted into `cand`."""
+    bool, when given, is counted into `cand`. A sharded move's ring
+    (`parallel/mesh.ShardedRing`) first gathers every rank's rows, in lane
+    order, so each rank appends them all."""
+    gather = getattr(rep, "gather", None)
+    if gather is not None:
+        cols, mask, cand = gather(cols, mask, cand)
     R = rep.capacity
     pos = torch.cumsum(mask, 0) - 1
     n = mask.sum()

@@ -411,6 +411,12 @@ def _early_stop_fit(model, cols, step, *, batch_size, iters_per_val, validation_
     return history
 
 
+def ewc_terms(fisher, p0, named) -> dict:
+    """name -> sum F (p - p0)^2 for each (name, p) of `named`: the terms of
+    the EWC penalty."""
+    return {n: (fisher[n] * (p - p0[n]) ** 2).sum() for n, p in named}
+
+
 class _NetModel:
     """What the session loop needs of a model that keeps its params in
     `self.net`: a copy of them, and setting them back in place (the
@@ -516,8 +522,7 @@ class VVModel(_NetModel):
             per = self.per_sample_loss(*batch)
             loss = per.mean()
             if lam:
-                penalty = sum((self.fisher[n] * (p - self.p0[n]) ** 2).sum()
-                              for n, p in zip(self.names, params))
+                penalty = sum(ewc_terms(self.fisher, self.p0, zip(self.names, params)).values())
                 loss = loss + 0.5 * lam * penalty
             grads = torch.autograd.grad(loss, params)
         return loss.detach(), per.detach(), grads

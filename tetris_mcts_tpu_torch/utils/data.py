@@ -131,6 +131,16 @@ class _RecAppender:
         return self._n
 
 
+def write_records(path: str, schema: Mapping, cols: Mapping[str, np.ndarray]):
+    """A new record file at `path` holding the rows of `cols` (column name
+    -> (n, ...) arrays of `schema`)."""
+    w = _RecAppender(path, schema)
+    try:
+        w.append(cols)
+    finally:
+        w.close()
+
+
 class DataSaver:
     """Per-move self-play rows, one a game, to `{save_dir}/{filename}{cycle}.rec`."""
 
