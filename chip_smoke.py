@@ -161,9 +161,25 @@ of the JAX package. Phases, each printing its elapsed seconds:
    profiled device ms a move beside one process's, the ring gather's and
    the gradient all-reduce's ms, the VV net on a rank's batch against one
    process's; launches summed over the ranks;
-28. multi nccl2: the same over NCCL on cuda:0 and cuda:1 where the machine
-   has two cards, else a line saying it was not run and why;
-29. dryrun: `dryrun_multigpu(2)` on the card (gloo on one card).
+28. multi gloo2 playouts: two spawned ranks on cuda:0 over gloo, 32 of the
+   64 lanes each, `DistributedSelfPlay` with Vanilla (low 5, rollout_cap
+   512) and HybridSim (depth 30, the value bootstrap) for PLAYOUT_MOVES
+   moves and FiniteSim and FullSim for one, at 4 sims (cut from 100), every
+   playout's exit test an all-reduce over the data axis (`Mesh.all_ended`):
+   bit-equal after every move to one process on the concatenation of the
+   ranks' games with the same planes (its VP net taking each rank's boards
+   as their own batch), with the same playout steps in every simulation;
+   HybridSim also against one process's net on all 64 boards at once
+   (integers equal, values within rtol 1e-6 / atol 1e-5, vars within rtol
+   1e-5 / atol 1e-5); each rank launches select, insert and the backup
+   walk moves x sims times; a rank's wall a move beside one process's
+   (HybridSim's profiled device ms too), the playout steps and exit tests
+   a move, and the flag's all-reduce against the local test, median ms of
+   10;
+29. multi nccl2: the lp and the playout runs over NCCL on cuda:0 and cuda:1
+   where the machine has two cards, else a line saying it was not run and
+   why;
+30. dryrun: `dryrun_multigpu(2)` on the card (gloo on one card).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the `kernels` line gives each kernel's launches summed over the
@@ -1249,10 +1265,12 @@ def main() -> int:
     saved_rows.cleanup()
     ins_double_ms, ins_linear_ms = phase_probe_double(torch, smi, trees)
 
-    # ---- 26-29. several ranks: NCCL at world size 1, two gloo ranks on one
-    # card, NCCL over two cards where there are two, the dry run ------------------
+    # ---- 26-30. several ranks: NCCL at world size 1, two gloo ranks on one
+    # card (lp and leaf, then the playouts), NCCL over two cards where there
+    # are two, the dry run ---------------------------------------------------------
     phase_multi_nccl1(torch, smi)
     phase_multi_gloo2(torch, smi)
+    multi_playouts(torch, smi, "multi gloo2 playouts", "cuda:0", "gloo")
     phase_multi_nccl2(torch, smi, count)
     phase_dryrun(torch, smi, count)
 
@@ -2913,6 +2931,74 @@ def phase_multi_gloo2(torch, smi):
         f"in {time.perf_counter() - t:.1f}s")
 
 
+def _playout_runs():
+    """The multi playout phases' runs, (name, cfg, moves, deep), at the
+    CLI's width (B=64, pools 4096/4096, table 8192, depth 96), sims cut to
+    PLAYOUT_SIMS as in the rollout and playouts phases: Vanilla (low 5,
+    rollout_cap 512) and HybridSim (depth 30, the value bootstrap) for
+    PLAYOUT_MOVES moves, FiniteSim (depth 50) and FullSim (to the game's
+    end, at most 512 steps) for one. HybridSim's run is the deep one: a
+    profiled move (the profiler costs ~0.7 ms a kernel, and a Vanilla move
+    launches ~10^5), and one process whose VP net takes all the boards at
+    once."""
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig
+
+    cfg = SelfPlayConfig(benchmark=True, sims=PLAYOUT_SIMS)
+    return [("rollout", cfg._replace(evaluator="rollout", low=5), PLAYOUT_MOVES, False),
+            ("hybrid", cfg._replace(evaluator="hybrid"), PLAYOUT_MOVES, True),
+            ("finite", cfg._replace(evaluator="finite"), 1, False),
+            ("full", cfg._replace(evaluator="full"), 1, False)]
+
+
+def multi_playouts(torch, smi, label, device, backend):
+    """Two spawned ranks of `DistributedSelfPlay` with the playout
+    evaluators of `_playout_runs` (tests/torch_ranks.card_playouts), held
+    against one process on cuda:0 (`check_card_playouts`): each rank
+    launches select, insert and the backup walk moves x sims times. Records
+    the launches summed over the ranks as the path `label` <name> and says
+    what each run measured."""
+    from tetris_mcts_tpu_torch.runtime import distributed as D
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_ranks import card_playouts, check_card_playouts
+
+    t = time.perf_counter()
+    runs = _playout_runs()
+    outs = D.spawn(card_playouts, 2, (runs, device), device=device, backend=backend,
+                   threads=0, timeout=600)
+    t_spawn = time.perf_counter() - t
+    held = check_card_playouts(outs, runs, "cuda:0")
+    for name, cfg, moves, deep in runs:
+        want = moves * cfg.sims
+        got = [o[name] for o in outs]
+        for r, o in enumerate(got):
+            check_launches(f"{label} {name} rank {r}", o["launches"],
+                           {"select_walk": want, "insert7_walk": want, "backup_walk": want})
+        launches = record(f"{label} {name}", _rank_summary(got))
+        walls, one_ms, one_steps, errs = held[name]
+        tests = [len(c) for c in got[0]["checks"]]
+        alone = sum((True, False) in c for o in got for c in o["checks"])
+        added = [sum(tests) / len(tests) * (o["flag_ms"] - o["local_flag_ms"]) for o in got]
+        say(f"phase {label} ({name}): 2 ranks x {cfg.batch // 2} lanes, {moves} move(s) x "
+            f"{cfg.sims} sims (cut from 100) at B={cfg.batch}: ranks bit-equal to one process "
+            + ("" if name == "rollout" else "whose VP net takes each rank's boards as a batch ")
+            + f"after every move, playout steps by simulation equal (by move "
+            f"{got[0]['steps']}, {sum(map(sum, one_steps))} in all); "
+            + (f"against one process's net on all {cfg.batch} boards at once integers equal, "
+               f"{float_errs(errs)}; " if deep else "")
+            + f"exit tests over the data axis a move {tests}, {alone} of them where a rank's "
+            f"own lanes had all ended and the other's played on; the flag's all-reduce "
+            f"(1 int32 over {backend}, Mesh.all_ended) rank 0 {got[0]['flag_ms']:.3f} ms, rank "
+            f"1 {got[1]['flag_ms']:.3f} ms against the local test's "
+            f"{got[0]['local_flag_ms']:.3f} ms, median of 10, so {max(added):.2f} ms a move "
+            f"more; wall the last move rank 0 {got[0]['walls'][-1] * 1e3:.1f} ms, rank 1 "
+            f"{got[1]['walls'][-1] * 1e3:.1f} ms, one process {walls[-1] * 1e3:.1f} ms; "
+            + (f"profiled device ms a move rank 0 {got[0]['device_ms']:.1f}, rank 1 "
+               f"{got[1]['device_ms']:.1f}, one process {one_ms:.1f}; " if deep else "")
+            + f"launches summed {launches} ({smi})")
+    say(f"phase {label} took {time.perf_counter() - t:.1f}s (spawn and ranks {t_spawn:.1f}s)")
+
+
 def float_errs(errs):
     """check_card_selfplay's float errors as a line: each field's max abs
     err by move, and the largest share of STAT_TOL's bound (rtol 1e-6 /
@@ -2936,8 +3022,8 @@ def net_batch_err(torch, model, n, k):
 
 def phase_multi_nccl2(torch, smi, count):
     """With two cards: the gloo2 phase's checks over NCCL, rank r on cuda:r
-    (its kernels launch on cuda:1 for rank 1). With one card: a line saying
-    so."""
+    (its kernels launch on cuda:1 for rank 1), then the playouts' (the
+    multi gloo2 playouts phase's runs). With one card: a line saying so."""
     if count < 2:
         say(f"phase multi nccl2: not run: {count} CUDA device on this machine; NCCL over two "
             "ranks needs two cards (NCCL refuses two ranks on one GPU)")
@@ -2958,6 +3044,7 @@ def phase_multi_nccl2(torch, smi, count):
         f"equal to one process ({float_errs(errs)}); "
         f"ring gather {outs[0]['ring_gather_ms']:.2f} ms; gradient all-reduce "
         f"{outs[0]['allreduce_ms']:.2f} ms ({smi}); in {time.perf_counter() - t:.1f}s")
+    multi_playouts(torch, smi, "multi nccl2 playouts", "cuda", "nccl")
 
 
 def phase_dryrun(torch, smi, count):

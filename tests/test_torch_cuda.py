@@ -50,9 +50,11 @@ draw's net agrees on, the update fed the card's gradients rtol 1e-6 / atol
 sigma ~0.01, so the devices' expf, an ulp apart, part rho by ~1e-6
 relative, 1.35e-6 seen). Double-hash probing adds the insert kernel against its plain
 version at B = 1, 5, 64 and 67 on the grown trees and on the edge inputs.
-Multi-rank adds two: two gloo ranks on one card (4 lp moves, a data- and a
-tensor-parallel learner step, 2 leaf moves) against one process, and, on a
-machine with two cards, select, insert and the LP backup on cuda:1.
+Multi-rank adds three: two gloo ranks on one card (4 lp moves, a data- and
+a tensor-parallel learner step, 2 leaf moves) against one process, the
+same ranks with the rollout and the policy playouts against one process,
+and, on a machine with two cards, select, insert and the LP backup on
+cuda:1.
 """
 
 import numpy as np
@@ -697,6 +699,37 @@ def test_two_rank_gloo_moves_and_learner_on_card_match_one_process(card, tmp_pat
         assert o["launches"]["select_walk"] == o["launches"]["lp_backup_walk"] == 4 * cfg.sims
         assert o["leaf_launches"]["backup_walk"] == 2 * cfg.sims
     assert outs[0]["ring_counts"][2] > 0
+
+
+def test_two_rank_gloo_playouts_on_card_match_one_process(card, tmp_path):
+    """Two gloo ranks on cuda:0, each `DistributedSelfPlay` with 4 of 8
+    lanes: 2 Vanilla and 2 HybridSim moves, 1 FiniteSim and 1 FullSim
+    move, every playout's exit test over both ranks (`Mesh.all_ended`).
+    After every move the trees are bit-equal to one process's on the
+    concatenation of the ranks' games (its VP net taking each rank's boards
+    as their own batch), every simulation's playout steps equal; HybridSim
+    also against one process's net on all 8 boards at once, integers equal,
+    values within rtol 1e-6 / atol 1e-5, vars within rtol 1e-5 / atol 1e-5
+    (tests/torch_ranks.check_card_playouts); select, insert and the backup
+    walk launch moves x sims times on each rank."""
+    from tetris_mcts_tpu_torch.runtime import distributed as D
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayConfig
+    from torch_ranks import card_playouts, check_card_playouts
+
+    cfg = SelfPlayConfig(batch=8, sims=3, max_nodes=128, max_obs=128, table_size=256,
+                         max_depth=24, benchmark=True, seed=4)
+    runs = [("rollout", cfg._replace(evaluator="rollout", low=5), 2, False),
+            ("hybrid", cfg._replace(evaluator="hybrid"), 2, True),
+            ("finite", cfg._replace(evaluator="finite"), 1, False),
+            ("full", cfg._replace(evaluator="full"), 1, False)]
+    outs = D.spawn(card_playouts, 2, (runs, "cuda:0"), device="cuda:0", backend="gloo",
+                   threads=0, timeout=600, workdir=str(tmp_path))
+    check_card_playouts(outs, runs, "cuda:0")
+    for name, c, moves, _ in runs:
+        for o in outs:
+            n = o[name]["launches"]
+            assert n["select_walk"] == n["insert7_walk"] == n["backup_walk"] == moves * c.sims
+            assert [len(s) for s in o[name]["steps"]] == [c.sims] * moves
 
 
 @pytest.mark.parametrize("n", [5, 67])

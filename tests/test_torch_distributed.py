@@ -16,7 +16,8 @@
   episodes, the log) the same on both. Then an online run whose sessions
   fire leaves the params bit-equal across ranks.
 - In one process (no group), `DistributedSelfPlay` is `SelfPlayDriver`
-  bit for bit, and it refuses the unsharded evaluators and channels.
+  bit for bit, and it refuses the single-process channels (the playout
+  evaluators on ranks: tests/test_torch_sharded_playouts.py).
 - `dryrun_multigpu(2)` and `dryrun_multigpu(4)` on the CPU.
 """
 
@@ -81,8 +82,6 @@ def test_one_rank_is_the_driver_bit_for_bit():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(cfg=CFG._replace(evaluator="rollout")), "not sharded"),
-    (dict(cfg=CFG._replace(evaluator="hybrid")), "not sharded"),
     (dict(cfg=CFG, saver=object()), "single-process channel"),
     (dict(cfg=CFG, status=object()), "single-process channel"),
 ])

@@ -1,6 +1,6 @@
-"""Rank functions of the port's multi-rank tests (tests/test_torch_parallel.py
-and tests/test_torch_distributed.py on the CPU, tests/test_torch_cuda.py
-and chip_smoke.py on the card). `runtime/distributed.spawn` runs them in
+"""Rank functions of the port's multi-rank tests (tests/test_torch_parallel.py,
+tests/test_torch_distributed.py and tests/test_torch_sharded_playouts.py on
+the CPU, tests/test_torch_cuda.py and chip_smoke.py on the card). `runtime/distributed.spawn` runs them in
 fresh processes; they import torch and the port only, and return what the
 parent compares with the JAX package or with one process.
 
@@ -12,6 +12,7 @@ as one process's (`card_selfplay`), and `check_card_selfplay` holds the
 ranks against one process on the concatenation of their games.
 """
 
+import contextlib
 import time
 from dataclasses import fields
 
@@ -22,7 +23,7 @@ from tetris_mcts_tpu_torch.runtime import distributed as D
 from tetris_mcts_tpu_torch.search import mcts
 from tetris_mcts_tpu_torch.search import stochastic as ST
 from tetris_mcts_tpu_torch.search import vp as VP
-from tetris_mcts_tpu_torch.train.trainer import VVModel
+from tetris_mcts_tpu_torch.train.trainer import VPModel, VVModel
 from torch_train_cases import train_columns
 
 VP_LOGIT = (0.03, -0.02, 0.011, 0.005, -0.007, 0.017, -0.002)  # torch_parity.STUB_LOGIT
@@ -39,6 +40,34 @@ class RecordedPlanes:
         return self.draws.pop(0)
 
     __call__ = uniforms = level_gumbels = drop = _next
+
+
+class PlayoutDraws:
+    """A playout's recorded global draws, handed out by step (`actions`,
+    `gumbels`): the port's loop tests its exit every ROLLOUT_EXIT_EVERY
+    steps, so it may stop before the last recorded step."""
+
+    def __init__(self, steps=None):
+        self.steps = steps
+
+    def actions(self, B, step):
+        return self.steps[step]
+
+    gumbels = actions
+
+
+class RecordedPlayoutPlanes(RecordedPlanes, PlayoutDraws):
+    """`RecordedPlanes` of a move program whose simulations play out:
+    `playouts` holds each simulation's playout draws by step, taken up by
+    that simulation's select draw."""
+
+    def __init__(self, draws, playouts):
+        RecordedPlanes.__init__(self, draws)
+        self.playouts = list(playouts)
+
+    def __call__(self, *_):
+        self.steps = self.playouts.pop(0)
+        return self._next()
 
 
 def cellsum_net(x):
@@ -85,6 +114,91 @@ def sharded_moves(rank, cases):
             envs, stats = smove(trees, envs, ring)
             actions.append(stats.action)
         out[name] = dict(trees=trees, envs=envs, ring=ring, actions=actions)
+    mesh.close()
+    return out
+
+
+def playout_evaluator(scfg, planes, all_ended=mcts.lanes_ended):
+    """scfg.evaluator's playout (the rollout, or a policy playout on
+    `vp_stub` at its `mcts.playout_depth`), drawing from `planes`."""
+    if scfg.evaluator == "rollout":
+        return mcts.rollout_evaluator(scfg, planes.actions, all_ended)
+    return mcts.policy_rollout_evaluator(vp_stub, scfg, mcts.playout_depth(scfg),
+                                         mcts.POLICY_PLAYOUTS[scfg.evaluator][1],
+                                         planes.gumbels, all_ended)
+
+
+def _logged_exits(mesh_cls):
+    """Have every `Mesh.all_ended` call (of any mesh, this process) log
+    (this rank's lanes all ended, every rank's) to the list returned."""
+    checks, whole = [], mesh_cls.all_ended
+
+    def all_ended(self, env):
+        ended = whole(self, env)
+        checks.append((mcts.lanes_ended(env), ended))
+        return ended
+
+    mesh_cls.all_ended = all_ended
+    return checks
+
+
+def sharded_playouts(rank, evals, moves, drives):
+    """The sharded playouts on this rank's rows, every exit test over the
+    data axis (`Mesh.all_ended`):
+
+    - `evals` (name -> scfg, the global leaf envs, the global draws by
+      step): the evaluator alone; its values and steps;
+    - `moves` (name -> scfg, the global trees and envs, moves, ring
+      capacity, the recorded select draws and playout draws): the move
+      program with the replicated ring; trees, envs, ring, every move's
+      actions and every simulation's playout steps;
+    - `drives` (name -> cfg, moves, and recorded (draws, playouts) or None
+      for the driver's own `TorchPlanes`): `DistributedSelfPlay`; its
+      trees, envs, ring, bookkeeping and log.
+
+    Every result carries the exit tests it made, (this rank's lanes all
+    ended, every rank's), in order."""
+    checks = _logged_exits(M.Mesh)
+    mesh = M.make_mesh()
+    out = {"evals": {}, "moves": {}, "drives": {}}
+    for name, c in evals.items():
+        checks.clear()
+        ev = playout_evaluator(c["scfg"], M.ShardedPlanes(PlayoutDraws(c["steps"]), mesh),
+                               mesh.all_ended)
+        v, var = ev(None, M.shard_batch(mesh, c["env"]))
+        out["evals"][name] = dict(v=v, var=var, steps=ev.steps, checks=list(checks))
+    for name, c in moves.items():
+        checks.clear()
+        planes = M.ShardedPlanes(RecordedPlayoutPlanes(c["draws"], c["playouts"]), mesh)
+        ev, steps = playout_evaluator(c["scfg"], planes, mesh.all_ended), []
+
+        def logged(packed7, leaf_env, ev=ev, steps=steps):
+            result = ev(packed7, leaf_env)
+            steps.append(ev.steps)
+            return result
+
+        move = mcts.make_move_fn(logged, c["scfg"], planes, min_visits_store=1, store=True)
+        trees, envs = M.shard_batch(mesh, (c["trees"], c["envs"]))
+        ring = mcts.init_replay(c["ring"], "cpu")
+        smove = M.sharded_move_fn(move, mesh)
+        actions = []
+        for _ in range(c["moves"]):
+            envs, stats = smove(trees, envs, ring)
+            actions.append(stats.action)
+        out["moves"][name] = dict(trees=trees, envs=envs, ring=ring, actions=actions,
+                                  steps=steps, checks=list(checks))
+    for name, (cfg, n, recorded) in drives.items():
+        checks.clear()
+        log = []
+        planes = None if recorded is None else RecordedPlayoutPlanes(*recorded)
+        sp = D.DistributedSelfPlay(cfg, device="cpu", log=log.append, planes=planes)
+        sp.run(n)
+        d = sp.driver
+        out["drives"][name] = dict(
+            trees=d.trees, envs=d.envs, ring=d.replay, log=log, moves=d.moves,
+            episodes=d.episodes, lines=(d.line_tracker.n, d.line_tracker.mean),
+            actions=d.last_stats.action, steps=d.evaluator.steps, checks=list(checks))
+        sp.close()
     mesh.close()
     return out
 
@@ -445,3 +559,160 @@ def check_card_selfplay(outs, cfg, moves, device="cuda", learner=None):
                         raise AssertionError(f"model {mp}: rank {r}'s {k} differs from "
                                              "rank 0's")
     return one, walls, dev_ms, errs
+
+
+# ---------------------------------------------------------------------------
+# the card: the playout evaluators on ranks against one process
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def playout_steps(log):
+    """While open, every rollout or policy-playout evaluator that
+    `search/mcts` builds appends each call's steps to `log` (a driver built
+    inside keeps doing so)."""
+    made = mcts.rollout_evaluator, mcts.policy_rollout_evaluator
+
+    def logging(make):
+        def build(*args, **kw):
+            ev = make(*args, **kw)
+
+            def logged(packed7, leaf_env):
+                out = ev(packed7, leaf_env)
+                logged.steps = ev.steps
+                log.append(ev.steps)
+                return out
+
+            logged.steps = 0
+            return logged
+
+        return build
+
+    mcts.rollout_evaluator, mcts.policy_rollout_evaluator = map(logging, made)
+    try:
+        yield log
+    finally:
+        mcts.rollout_evaluator, mcts.policy_rollout_evaluator = made
+
+
+def _median_ms(fn, dev, n=10):
+    ms = []
+    for _ in range(n + 1):
+        _sync(dev)
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return sorted(ms[1:])[n // 2]
+
+
+def card_playouts(rank, runs, device):
+    """On rank's card, for each (name, cfg, moves, deep) of `runs`: `moves`
+    moves of `DistributedSelfPlay(cfg)` (a playout evaluator; launch counts
+    from 0, each move's wall time), then the exit test over the data axis
+    (`Mesh.all_ended`) and the local one (`mcts.lanes_ended`) on this
+    rank's envs, median ms of 10 each, then, if `deep`, one profiled move
+    more (torch.profiler costs ~0.7 ms a kernel there, and a Vanilla move
+    runs ~10^5). Returns by name CPU copies of the trees after every move
+    and of the envs, the launches, the walls, each move's playout steps by
+    simulation and exit tests (this rank's lanes all ended, every rank's),
+    those ms and the profiled device ms (None without `deep`)."""
+    dev = torch.device(device) if device != "cuda" else D.rank_device("cuda")
+    checks = _logged_exits(M.Mesh)
+    out = {}
+    for name, cfg, moves, deep in runs:
+        steps = []
+        with playout_steps(steps):
+            sp = D.DistributedSelfPlay(cfg, device=dev, log=lambda s: None)
+        d = sp.driver
+        _reset_launches()
+        walls, by_move, steps_by_move, checks_by_move = [], [], [], []
+        for _ in range(moves):
+            steps.clear()
+            checks.clear()
+            _sync(dev)
+            t = time.perf_counter()
+            d.step()
+            _sync(dev)
+            walls.append(time.perf_counter() - t)
+            by_move.append(_cpu(d.trees))
+            steps_by_move.append(list(steps))
+            checks_by_move.append(list(checks))
+        res = dict(trees_by_move=by_move, envs=d.envs.cpu(), launches=_launch_counts(),
+                   walls=walls, steps=steps_by_move, checks=checks_by_move)
+        res["flag_ms"] = _median_ms(lambda: sp.mesh.all_ended(d.envs), dev)
+        res["local_flag_ms"] = _median_ms(lambda: mcts.lanes_ended(d.envs), dev)
+        res["device_ms"] = profiled_device_ms(d.step, 1, dev)[0] if deep else None
+        sp.close()
+        out[name] = res
+    return out
+
+
+def check_card_playouts(outs, runs, device="cuda"):
+    """Hold the ranks of `card_playouts` against one process on `device`:
+    `SelfPlayDriver(cfg)` on the concatenation of the ranks' games with the
+    same planes. The rollout's (no net): every tree array after every move
+    and the envs bit-equal, every simulation's playout steps equal. A
+    policy playout's: the same against the process whose VP net takes each
+    rank's boards as their own batch (`_rank_batched`); then, for a `deep`
+    run (`card_playouts`), against one process whose net takes all the
+    boards at once, every integer tree array equal, values within STAT_TOL
+    and vars within NET_VAR_TOL after every move. Returns by name (the one
+    process's move walls, its profiled device ms a move if `deep`, its
+    playout steps by move, errs by move as `check_card_selfplay`'s)."""
+    result = {}
+    for name, cfg, moves, deep in runs:
+        W, local = len(outs), cfg.batch // len(outs)
+        rollout = cfg.evaluator == "rollout"
+        steps = []
+        with playout_steps(steps):
+            twin = _one_process(cfg, W, device, None if rollout else
+                                _rank_batched(VPModel(cfg.seed, device), W))
+        walls, steps_by_move = [], []
+        for mv in range(moves):
+            steps.clear()
+            _sync(device)
+            t = time.perf_counter()
+            twin.step()
+            _sync(device)
+            walls.append(time.perf_counter() - t)
+            steps_by_move.append(list(steps))
+            trees = _cpu(twin.trees)
+            for r, o in enumerate(outs):
+                got = o[name]
+                if got["steps"][mv] != steps_by_move[mv]:
+                    raise AssertionError(f"{name} move {mv + 1} rank {r}: playout steps "
+                                         f"{got['steps'][mv]}, one process's {steps_by_move[mv]}")
+                want = _rows(trees, r * local, local)
+                for f in fields(want):
+                    if not torch.equal(getattr(got["trees_by_move"][mv], f.name),
+                                       getattr(want, f.name)):
+                        raise AssertionError(f"{name} move {mv + 1} rank {r}: {f.name} differs "
+                                             "from one process's" + ("" if rollout else
+                                                                     " with the rank's net batch"))
+        envs = twin.envs.cpu()
+        for r, o in enumerate(outs):
+            if not torch.equal(o[name]["envs"], envs[r * local:(r + 1) * local]):
+                raise AssertionError(f"{name} rank {r}: envs differ from one process's")
+        errs = []
+        if deep and not rollout:
+            del twin
+            steps = []
+            with playout_steps(steps):
+                twin = _one_process(cfg, W, device)
+            walls, steps_by_move = [], []
+            for mv in range(moves):
+                steps.clear()
+                _sync(device)
+                t = time.perf_counter()
+                twin.step()
+                _sync(device)
+                walls.append(time.perf_counter() - t)
+                steps_by_move.append(list(steps))
+                trees, e = _cpu(twin.trees), {}
+                for r, o in enumerate(outs):
+                    _hold_trees(f"{name} move {mv + 1} rank {r}", o[name]["trees_by_move"][mv],
+                                _rows(trees, r * local, local), e)
+                errs.append(e)
+        dev_ms = profiled_device_ms(twin.step, 1, device)[0] if deep else None
+        result[name] = (walls, dev_ms, steps_by_move, errs)
+    return result

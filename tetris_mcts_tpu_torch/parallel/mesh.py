@@ -13,9 +13,13 @@ its model index with) and one a row (`Mesh.model_group`).
   (its kernels on its own device through `ops/build.launch`) on its own
   rows of the global game batch. Its randomness is its rows of the global
   draw (`ShardedPlanes`), so W ranks of B/W lanes compute what one process
-  computes at B. The replay ring is replicated: the harvested rows of every
-  rank enter it in global lane order, rank by rank, where the reference's
-  cumsum over the global mask puts them.
+  computes at B. A playout loop (the rollout, the policy playouts) asks
+  `Mesh.all_ended` whether to stop, which counts the live lanes over the
+  data axis, so every rank steps, and draws, as long as any lane plays on:
+  the reference's `jnp.any` over the global batch. The replay ring is
+  replicated: the harvested rows of every rank enter it in global lane
+  order, rank by rank, where the reference's cumsum over the global mask
+  puts them.
 - **Learning** (`make_sharded_learner`, `sharded_train_step`): every rank
   takes the same global minibatch indices; a data rank computes the loss
   on its rows of them, scaled by its rows over the minibatch, and the
@@ -105,6 +109,17 @@ class Mesh:
         if self.data_group is None:
             return x
         return _all_gather(x, self.data_size, self.data_index, self.data_group)
+
+    def all_ended(self, env: torch.Tensor) -> bool:
+        """Whether every lane of every data rank has ended, `env` this rank's
+        packed states (B, 44), column 43 the end flag: its live lanes
+        counted, summed over the data group (one int32 all-reduce) and read
+        once. A playout loop that stops on it runs as many steps, and draws
+        as often, on every rank as one process at the global batch."""
+        live = (env[:, 43] == 0).sum(dtype=torch.int32).reshape(1)
+        if self.data_group is not None:
+            dist.all_reduce(live, group=self.data_group)
+        return int(live) == 0
 
     def gather_rows(self, cols, mask, cand):
         """A ring append's columns (n-row tensors of 4-byte elements), its
@@ -263,8 +278,8 @@ class ShardedPlanes:
     `search/mcts.TorchPlanes`): every draw is made at the global batch, this
     rank's lanes x the data axis's length, and sliced to this rank's rows,
     so the ranks together see what one process at the global batch sees.
-    A rollout's or a policy playout's loop ends when its own lanes have
-    ended, which differs between ranks: those evaluators are not sharded."""
+    A playout draws at every step its loop runs, its own lanes ended or
+    not; the loop stops on `Mesh.all_ended`, so the ranks draw alike."""
 
     def __init__(self, planes, mesh: Mesh):
         self.planes = planes
@@ -275,6 +290,12 @@ class ShardedPlanes:
 
     def __call__(self, B, D):
         return tuple(self._mine(x, B) for x in self.planes(B * self._n, D))
+
+    def actions(self, B, step):
+        return self._mine(self.planes.actions(B * self._n, step), B)
+
+    def gumbels(self, B, step):
+        return self._mine(self.planes.gumbels(B * self._n, step), B)
 
     def level_gumbels(self, B, D):
         return self._mine(self.planes.level_gumbels(B * self._n, D), B)

@@ -122,8 +122,7 @@ def _drivers():
     return {"vp": (SP.VPSelfPlayDriver, "vtrees", VP.init_vp_batch),
             "dist": (SP.DistSelfPlayDriver, "dtrees", None),
             "s2": (SP.S2SelfPlayDriver, "s2trees", ST.init_s2_batch),
-            "lp": (SP.SelfPlayDriver, "trees", mcts.init_batch),
-            "leaf": (SP.SelfPlayDriver, "trees", mcts.init_batch)}
+            **{ev: (SP.SelfPlayDriver, "trees", mcts.init_batch) for ev in mcts.EVALUATORS}}
 
 
 class DistributedSelfPlay:
@@ -133,15 +132,16 @@ class DistributedSelfPlay:
     every rank keeps the same bookkeeping (moves, episodes, logs, training
     gates) on the gathered reads. `planes` is the global randomness source
     (default a `search/mcts.TorchPlanes` seeded from cfg.seed, the same on
-    every rank), of which each rank draws its rows. A session runs on every rank on the same
-    rows and ends with every rank's model set to rank 0's (cuDNN's backward
-    may differ between ranks), so the nets stay bit-equal.
+    every rank), of which each rank draws its rows. The rollout and the
+    policy playouts stop their loop when every rank's lanes have ended
+    (`parallel/mesh.Mesh.all_ended`), so each rank makes one process's draws.
+    A session runs on every rank on the same rows and ends with every rank's
+    model set to rank 0's (cuDNN's backward may differ between ranks), so
+    the nets stay bit-equal.
 
-    The lp, leaf, vp, dist and s2 evaluators are sharded. The rollout and
-    the policy playouts end their loop when their own lanes have ended,
-    which would part the ranks' draws, and are refused; so are `saver` and
-    `status`, single-process channels (every rank would write the same rows
-    to the same file)."""
+    Every evaluator is sharded. `saver` and `status` are refused:
+    single-process channels (every rank would write the same rows to the
+    same file)."""
 
     def __init__(self, cfg, model=None, model_parallel: int = 1, device="cuda", planes=None,
                  **driver_kw):
@@ -151,15 +151,15 @@ class DistributedSelfPlay:
                                  "write the same rows to the same file")
         drivers = _drivers()
         if cfg.evaluator not in drivers:
-            raise ValueError(f"evaluator {cfg.evaluator!r} is not sharded: its playout loop "
-                             "ends when its own lanes end, which parts the ranks' draws "
-                             f"(sharded: {', '.join(drivers)})")
+            raise ValueError(f"unknown evaluator {cfg.evaluator!r} (known: {', '.join(drivers)})")
+        cls, attr, init = drivers[cfg.evaluator]
         self.device = rank_device(device)
         self.mesh = global_mesh(model_parallel)
-        cls, attr, init = drivers[cfg.evaluator]
         if cfg.evaluator != "s2":
             driver_kw["planes"] = M.ShardedPlanes(
                 planes or mcts.TorchPlanes(cfg.seed, self.device, cfg.policy), self.mesh)
+        if cfg.evaluator in mcts.EVALUATORS:
+            driver_kw["all_ended"] = self.mesh.all_ended
         self.driver = cls(cfg, model=model, device=self.device, **driver_kw)
         d = self.driver
         local = local_batch(cfg.batch, self.mesh.data_size)

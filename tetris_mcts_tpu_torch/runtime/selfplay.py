@@ -651,12 +651,14 @@ class SelfPlayDriver(_OnlineDriverBase):
 
     def __init__(self, cfg: SelfPlayConfig, model: VVModel | VPModel | None = None,
                  device="cuda", log=lambda s: print(s, file=sys.stderr, flush=True),
-                 metrics=None, saver=None, status=None, planes=None):
+                 metrics=None, saver=None, status=None, planes=None, all_ended=None):
         """`saver`: a `utils.data.DataSaver` (per-move rows); `status`: an
         `obs.metrics.StatusPublisher` (live-state memmaps). The policy
         playouts (hybrid, finite, full) run on a `VPModel`, the other
         evaluators on a `VVModel`. `planes` replaces the randomness source
-        (a multi-rank run's `parallel/mesh.ShardedPlanes`)."""
+        (a multi-rank run's `parallel/mesh.ShardedPlanes`), `all_ended` the
+        playouts' exit test (`search/mcts.lanes_ended`; a multi-rank run's
+        `parallel/mesh.Mesh.all_ended`)."""
         self._init_bookkeeping(cfg, log, metrics, saver, status, device)
         playout = cfg.evaluator in mcts.POLICY_PLAYOUTS
         if model is None:
@@ -666,17 +668,19 @@ class SelfPlayDriver(_OnlineDriverBase):
         mcts.log_plain_walks(self.log, self.search_cfg.tree)
         self.planes = planes or mcts.TorchPlanes(cfg.seed, self.device, cfg.policy)
         apply_fn = self.model.apply_fn(torch.bfloat16 if cfg.bf16 else None)
+        all_ended = all_ended or mcts.lanes_ended
         if cfg.evaluator == "lp":
             evaluator = mcts.nn_child_evaluator(apply_fn)
         elif cfg.evaluator == "leaf":
             evaluator = mcts.nn_leaf_evaluator(apply_fn)
         elif cfg.evaluator == "rollout":
-            evaluator = mcts.rollout_evaluator(self.search_cfg, self.planes.actions)
+            evaluator = mcts.rollout_evaluator(self.search_cfg, self.planes.actions, all_ended)
         elif playout:
             evaluator = mcts.policy_rollout_evaluator(
                 apply_fn, self.search_cfg,
                 mcts.playout_depth(self.search_cfg, cfg.rollout_depth),
-                bootstrap=mcts.POLICY_PLAYOUTS[cfg.evaluator][1], draw=self.planes.gumbels)
+                bootstrap=mcts.POLICY_PLAYOUTS[cfg.evaluator][1], draw=self.planes.gumbels,
+                all_ended=all_ended)
         else:
             raise ValueError(f"unknown or unported evaluator {cfg.evaluator!r}")
         self.evaluator = evaluator

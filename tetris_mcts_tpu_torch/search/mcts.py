@@ -48,9 +48,10 @@ harvest first appends the lane's training rows (every obs with at least
 tree and re-roots in it; only a full pool or a lost root resets it. The
 harvest and the store run masked on every move, so the lp and leaf moves
 stay on the device: they never read a value back to the host, and the
-driver's one read per move is the only synchronisation. The rollout reads
-one flag every `ROLLOUT_EXIT_EVERY` playout steps, to stop once every
-playout has ended.
+driver's one read per move is the only synchronisation. The playouts read
+one flag every `ROLLOUT_EXIT_EVERY` steps, to stop once every playout has
+ended (`lanes_ended`; on several ranks every rank's lanes,
+`parallel/mesh.Mesh.all_ended`).
 
 Randomness: the select walk takes pre-drawn (B, D, 7) gumbel planes (and
 per-child planes for the mc/random policies), the rollout one action draw
@@ -87,6 +88,11 @@ POLICY_PLAYOUTS = {"hybrid": (30, True), "finite": (50, False), "full": (None, F
 # read); ended lanes are no-ops under packed_step, so the check only saves
 # steps and never changes a result
 ROLLOUT_EXIT_EVERY = 16
+
+
+def lanes_ended(env) -> bool:
+    """Whether every lane of packed envs (B, 44) has ended: one host read."""
+    return bool((env[:, 43] != 0).all())
 
 
 class SearchConfig(NamedTuple):
@@ -188,13 +194,16 @@ def nn_leaf_evaluator(net_fn: Callable):
     return ev
 
 
-def rollout_evaluator(cfg: SearchConfig, draw: Callable):
+def rollout_evaluator(cfg: SearchConfig, draw: Callable,
+                      all_ended: Callable = lanes_ended):
     """Uniform-random playout from the leaf env to game end, at most
     cfg.rollout_cap steps (the Vanilla agent's evaluator): value = the
     playout's final score, variance cfg.rollout_variance. All B playouts
     advance in lockstep; ended lanes are no-ops. draw(B, step) gives the
-    actions (B,) of each step (`TorchPlanes.actions`). `ev.steps` holds the
-    number of steps the last call ran."""
+    actions (B,) of each step (`TorchPlanes.actions`). The loop stops when
+    all_ended(env) holds, tested every ROLLOUT_EXIT_EVERY steps (default
+    `lanes_ended`; several ranks pass `parallel/mesh.Mesh.all_ended`).
+    `ev.steps` holds the number of steps the last call ran."""
     env_kw = T.env_kw(cfg.tree)
 
     def ev(packed7, leaf_env):
@@ -202,7 +211,7 @@ def rollout_evaluator(cfg: SearchConfig, draw: Callable):
         env = leaf_env
         step = 0
         while step < cfg.rollout_cap:
-            if step % ROLLOUT_EXIT_EVERY == 0 and bool((env[:, 43] != 0).all()):
+            if step % ROLLOUT_EXIT_EVERY == 0 and all_ended(env):
                 break
             env = EP.packed_step(env, draw(B, step), **env_kw)
             step += 1
@@ -215,7 +224,8 @@ def rollout_evaluator(cfg: SearchConfig, draw: Callable):
 
 
 def policy_rollout_evaluator(vp_fn: Callable, cfg: SearchConfig, depth: int,
-                             bootstrap: bool, draw: Callable):
+                             bootstrap: bool, draw: Callable,
+                             all_ended: Callable = lanes_ended):
     """A playout guided by the VP net's policy from the leaf env, at most
     `depth` steps (the HybridSim, FiniteSim and FullSim agents): each step
     is one forward of the net on the B boards, the action a ~
@@ -225,8 +235,8 @@ def policy_rollout_evaluator(vp_fn: Callable, cfg: SearchConfig, depth: int,
     with `bootstrap` the net's value at the final state where the game has
     not ended; variance cfg.rollout_variance. vp_fn: float images (n, 1, 20,
     10) -> (v (n,), logits (n, 7)). The loop checks "every playout has
-    ended" every ROLLOUT_EXIT_EVERY steps. `ev.steps` holds the steps of
-    the last call."""
+    ended", all_ended(env) as the rollout's, every ROLLOUT_EXIT_EVERY steps.
+    `ev.steps` holds the steps of the last call."""
     env_kw = T.env_kw(cfg.tree)
 
     def imgs(env):
@@ -238,7 +248,7 @@ def policy_rollout_evaluator(vp_fn: Callable, cfg: SearchConfig, depth: int,
         env = leaf_env
         step = 0
         while step < depth:
-            if step % ROLLOUT_EXIT_EVERY == 0 and bool((env[:, 43] != 0).all()):
+            if step % ROLLOUT_EXIT_EVERY == 0 and all_ended(env):
                 break
             _, logits = vp_fn(imgs(env))
             x = logits.float() + draw(B, step)
