@@ -179,7 +179,21 @@ of the JAX package. Phases, each printing its elapsed seconds:
 29. multi nccl2: the lp and the playout runs over NCCL on cuda:0 and cuda:1
    where the machine has two cards, else a line saying it was not run and
    why;
-30. dryrun: `dryrun_multigpu(2)` on the card (gloo on one card).
+30. dryrun: `dryrun_multigpu(2)` on the card (gloo on one card);
+31. bench: the measurement entry points at bench.py's card sizes:
+   `bench_torch.bench_env` (B=8192, 512 steps, a warm-up and 3 runs; no
+   kernel launches, no lane left ended) and `bench_mcts` (lp, B=256, 100
+   sims, 8 moves a run, a warm-up and 3 runs: select, insert and LP backup
+   each launch 4 x 8 x 100 times), printed as bench_torch.py's line with
+   every run's rate and the spread; one more run of that program timed,
+   then profiled (device ms beside its wall ms, from the first of up to
+   PROFILER_SESSIONS sessions that recorded at least 792 of the 800
+   launches of each of the three kernels, its counts printed);
+   agent_bench_torch's
+   ValueSimLP row (B=256, 100 sims, pools 2048) and DQN row (B=1024) at
+   BENCH_AGENT_STEPS timed steps each (its own 8 and 64, cut); and
+   profile_mcts_torch's phases at its defaults (B=256, pools 8192, 64 sims),
+   each kernel launching the count its phases make.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the `kernels` line gives each kernel's launches summed over the
@@ -195,7 +209,6 @@ import contextlib
 import faulthandler
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -236,6 +249,8 @@ ENS_LEAF_MOVES = 2         # ValueSim --ensemble 5, frozen
 ENS_TRAIN_ITERS = 500      # train --ensemble 5 --ewc's cut of --max_iters (CLI: 100000)
 BAYES_ITERS, BAYES_BATCH, BAYES_MC = 500, 128, 5  # the bayes phase's sessions
 PROBE_MOVES = 5            # the probe double phase's lp moves at the CLI width
+BENCH_AGENT_STEPS = 1      # the bench phase's timed steps of an agent row (the script's
+                           # 8 moves, 64 DQN steps)
 # a stand-in for the VP net: logits s x STUB_LOGIT from the board's cell sum s
 STUB_LOGIT = (0.3, -0.2, 0.11, 0.05, -0.07, 0.17, -0.02)
 # each path's kernel launches, recorded as the path runs (the kernels line)
@@ -245,13 +260,6 @@ T0 = time.perf_counter()
 
 def say(msg):
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
-
-
-def nvidia_smi():
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def ptxas_summary(log):
@@ -899,6 +907,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        from tetris_mcts_tpu_torch.obs.card import nvidia_smi
         from tetris_mcts_tpu_torch.ops import build, tree_walk, vv_forward
         from tetris_mcts_tpu_torch.search import mcts
         from tetris_mcts_tpu_torch.search import tree as T
@@ -1273,6 +1282,10 @@ def main() -> int:
     multi_playouts(torch, smi, "multi gloo2 playouts", "cuda:0", "gloo")
     phase_multi_nccl2(torch, smi, count)
     phase_dryrun(torch, smi, count)
+
+    # ---- 31. the measurement entry points: bench_torch, agent_bench_torch,
+    # profile_mcts_torch -------------------------------------------------------------
+    phase_bench(torch, smi)
 
     def by_path(name):
         return {p: c[name] for p, c in PATH_LAUNCHES.items() if c.get(name)}
@@ -3058,6 +3071,125 @@ def phase_dryrun(torch, smi, count):
         f"{outs[0]['model_parallel']}) losses {[round(x, 4) for x in outs[0]['losses']]}, params "
         f"equal on both ranks; in {time.perf_counter() - t:.1f}s")
 
+
+# ---------------------------------------------------------------------------
+# 31: the measurement entry points
+# ---------------------------------------------------------------------------
+
+def phase_bench(torch, smi):
+    """bench_torch's line at bench.py's card sizes, one bench_mcts run
+    profiled beside its wall time, agent_bench_torch's ValueSimLP and DQN
+    rows, and profile_mcts_torch's phases; the launches of each, by path."""
+    import bench_torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import agent_bench_torch as ab
+    import profile_mcts_torch
+    from tetris_mcts_tpu_torch.runtime.selfplay import SelfPlayDriver
+
+    t = time.perf_counter()
+    dev = torch.device("cuda")
+    env, mc = bench_torch.SIZES["cuda"]["env"], bench_torch.SIZES["cuda"]["mcts"]
+    reset_launches()
+    env_rate, envs = bench_torch.bench_env(device=dev, **env)
+    check_launches("bench env", record("bench env", read_launches()), {})
+    if envs.shape != (env["batch"], 44) or bool((envs[:, 43] != 0).any()):
+        raise AssertionError(f"bench env: final envs {tuple(envs.shape)}, or a lane left "
+                             "ended (the auto-reset did not run)")
+    # a run's launches of each lp kernel: one a simulation
+    per_run = mc["moves"] * mc["sims"]
+    lp_kernels = ("select_walk", "insert7_walk", "lp_backup_walk")
+    reset_launches()
+    sims_rate, reps = bench_torch.bench_mcts(device=dev, **mc)
+    torch.cuda.synchronize()
+    launches = record("bench mcts", read_launches())
+    check_launches("bench mcts", launches,
+                   {k: (1 + mc["reps"]) * per_run for k in lp_kernels})
+    line = bench_torch.bench_line(env_rate, sims_rate, reps, dev)
+    say(f"phase bench: bench_torch line {json.dumps(line)}")
+    say(f"phase bench: bench_env B={env['batch']} x {env['steps']} steps: "
+        f"{env_rate:.1f} env steps/s (best of {env['reps']}); bench_mcts lp B={mc['batch']}, "
+        f"{mc['sims']} sims, {mc['moves']} moves a run: sims/s every run {reps}, best "
+        f"{sims_rate:.1f}, spread {max(reps) - min(reps):.1f} ({smi}); launches {launches}")
+
+    # one more run of the same program timed, then one profiled. A profiler
+    # session can miss launches (device_ms): after the other phases every
+    # session here missed one select and one insert, even with a wait and
+    # spin kernels between its start and the run.
+    # Each lp kernel's recorded launches are held to the run's: a session
+    # that missed at most 1 in 100 of each is taken, else up to
+    # PROFILER_SESSIONS run, and the line gives the counts it recorded.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_launches()
+    run = bench_torch.mcts_program(mc["batch"], mc["sims"], mc["moves"], device=dev)
+    run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    st = run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t_run) * 1e3
+    lp_names = ("tmt::select_kernel", "tmt::insert7_kernel", "tmt::lp_backup_kernel")
+    for session in range(1, PROFILER_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = {name: sum(e.count for e in rows if f"{name}(" in e.key) for name in lp_names}
+        if all(per_run - per_run // 100 <= n <= per_run for n in seen.values()):
+            break
+        say(f"phase bench: profiler session {session} saw {seen} launches, want {per_run} each")
+    else:
+        raise AssertionError(f"bench mcts: no profiler session of {PROFILER_SESSIONS} recorded "
+                             f"99 in 100 launches of each lp kernel, the last {seen}")
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    n_kernels = sum(e.count for e in rows)
+    prof_launches = record("bench mcts profiled", read_launches())
+    check_launches("bench mcts profiled", prof_launches,
+                   {k: (2 + session) * per_run for k in lp_kernels})
+    if not (bool((st.child_stats[:, 0].sum(1) > 0).all())
+            and bool(torch.isfinite(st.root_value).all())):
+        raise AssertionError("bench mcts: a root without visits, or a non-finite root value")
+    say(f"phase bench: one bench_mcts run ({mc['moves']} moves): {wall_ms:.2f} ms wall "
+        f"unprofiled, {dev_ms:.2f} ms device profiled ({n_kernels} kernels recorded, of "
+        f"them lp launches {seen} of {per_run} each; profiler session {session}), device "
+        f"busy share {dev_ms / wall_ms:.3f}; "
+        f"{mc['batch'] * per_run / wall_ms * 1e3:.1f} sims/s in the timed run")
+
+    # agent_bench_torch's rows at its sizes, cut to BENCH_AGENT_STEPS timed steps
+    reset_launches()
+    row = ab.bench_mcts_driver("ValueSimLP", SelfPlayDriver, ab.BATCH, ab.SIMS, ab.NODES,
+                               BENCH_AGENT_STEPS, dev, evaluator="lp")
+    n = (1 + BENCH_AGENT_STEPS) * ab.SIMS
+    check_launches("bench agent vv", record("bench agent vv", read_launches()),
+                   {k: n for k in lp_kernels})
+    say(f"phase bench: agent_bench_torch {json.dumps(row)}")
+    reset_launches()
+    row = ab.bench_dqn("DQN", False, ab.DQN_BATCH, BENCH_AGENT_STEPS, dev)
+    check_launches("bench agent dqn", record("bench agent dqn", read_launches()), {})
+    say(f"phase bench: agent_bench_torch {json.dumps(row)}")
+
+    # profile_mcts_torch at its defaults: the populating pass, then each
+    # phase's warm-up and timed reps of `sims` calls (its header line's)
+    head = {}
+
+    def emit(d):
+        if "batch" in d:
+            head.update(d)
+        say(f"phase bench: profile_mcts_torch {json.dumps(d)}")
+
+    reset_launches()
+    phases = profile_mcts_torch.profile(device=dev, emit=emit)
+    profile_launches = record("bench profile", read_launches())
+    sims = head["sims"]
+    r = (1 + profile_mcts_torch.REPS) * sims
+    check_launches("bench profile", profile_launches, {"select_walk": sims + r + 1 + r,
+                                           "insert7_walk": sims + r + r,
+                                           "lp_backup_walk": sims + r, "backup_walk": r})
+    if not all(v == v for v in phases.values()):
+        raise AssertionError(f"bench profile: a phase's time is not a number: {phases}")
+    say(f"phase bench took {time.perf_counter() - t:.1f}s")
 
 if __name__ == "__main__":
     sys.exit(main())

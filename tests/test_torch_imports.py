@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package, nor h5py or PIL (the
-card's machine has neither): its modules and chip_smoke.py are checked by their
+card's machine has neither): its modules, chip_smoke.py and the measurement
+entry points (bench_torch.py, scripts/*_torch.py) are checked by their
 import statements, and the package is imported in a fresh interpreter
 where `jax`, flax, msgpack, the JAX package and `h5py` cannot be imported;
 there the JAX package's checkpoint is read and loaded too."""
@@ -14,7 +15,12 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "h5py", "PIL", "triton",
              "tetris_mcts_tpu")
-SOURCES = sorted((ROOT / "tetris_mcts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the measurement entry points: bench_torch.py and the scripts' port counterparts
+ENTRY_POINTS = [ROOT / "bench_torch.py"] + [
+    ROOT / "scripts" / f"{name}_torch.py"
+    for name in ("agent_bench", "profile_mcts", "sweep_mcts_batch", "scaling_bench")]
+SOURCES = (sorted((ROOT / "tetris_mcts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + ENTRY_POINTS)
 
 
 def _imported(tree):
@@ -61,7 +67,7 @@ def test_package_imports_with_jax_blocked():
         "import pkgutil, importlib, tetris_mcts_tpu_torch as p\n"
         "for mod in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(mod.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_torch\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -23,9 +23,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import torch
+
+from tetris_mcts_tpu_torch.obs.card import device_label
 
 KERNEL = "tmt::select_kernel("
 REPS = 20
@@ -77,10 +78,8 @@ def main(argv=None) -> int:
     sel()
     out = {form: [_session(sel, form == "warmup") for _ in range(args.sessions)]
            for form in ("plain", "warmup")}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
     print(json.dumps({"reps": REPS, "after_profile": args.after_profile, "sessions": out,
-                      "device": smi.stdout.strip()}))
+                      "device": device_label(torch.device("cuda"))}))
     return 0
 
 
